@@ -23,24 +23,24 @@ import tempfile
 import jax.numpy as jnp
 import numpy as np
 
-from speech_recognition_tpu.config import DIGIT_NAMES, FrontendConfig
-from speech_recognition_tpu.data import (
+from speech_recognition_jax.config import DIGIT_NAMES, FrontendConfig
+from speech_recognition_jax.data import (
     SyntheticDigits,
     read_wav,
     transcript_from_filename,
     write_wav,
 )
-from speech_recognition_tpu.decode import (
+from speech_recognition_jax.decode import (
     beam_decode_lextree,
     classify_batch,
     decode_connected,
     decode_lextree,
 )
-from speech_recognition_tpu.models import HMMBank, build_lex_graph
-from speech_recognition_tpu.models.graph import build_loop_graph
-from speech_recognition_tpu.ops import mfcc39, padded_length
-from speech_recognition_tpu.train import fit_hmm
-from speech_recognition_tpu.utils.metrics import wer
+from speech_recognition_jax.models import HMMBank, build_lex_graph
+from speech_recognition_jax.models.graph import build_loop_graph
+from speech_recognition_jax.ops import mfcc39, padded_length
+from speech_recognition_jax.train import fit_hmm
+from speech_recognition_jax.utils.metrics import wer
 
 
 def featurize(utts, cfg):

@@ -1,0 +1,86 @@
+"""Live microphone capture (optional; requires pyaudio).
+
+Wraps the offline endpointer in ``data/endpoint.py`` around a PyAudio
+input stream — the reference's ``AudioRecorder``
+(``/root/reference/sr/audio_capture/record.py:34-276``) with the same
+frame/level/background state machine, but the detection logic lives in
+the shared pure functions so it is testable without hardware.  In this
+image pyaudio is not installed; importing this module is fine, calling
+:func:`record` raises a clear error.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from speech_recognition_jax.config import EndpointConfig
+from speech_recognition_jax.data.endpoint import endpoint_signal
+from speech_recognition_jax.data.wav import write_wav
+
+try:  # pragma: no cover - optional hardware dependency
+    import pyaudio  # type: ignore
+
+    HAVE_PYAUDIO = True
+except ImportError:  # pragma: no cover
+    pyaudio = None
+    HAVE_PYAUDIO = False
+
+
+def record(
+    file: Optional[str] = None,
+    cfg: EndpointConfig = EndpointConfig(),
+    max_record_time_s: float = 1000.0,
+) -> np.ndarray:
+    """Record one endpointed utterance from the default microphone.
+
+    Returns the trimmed int16 samples; writes them to ``file`` if given
+    (reference ``record()``, ``record.py:267-276``).
+    """
+    if not HAVE_PYAUDIO:
+        raise RuntimeError(
+            "pyaudio is not available in this environment; "
+            "use data.synthetic or wav files instead"
+        )
+
+    pa = pyaudio.PyAudio()
+    stream = pa.open(
+        format=pyaudio.paInt16,
+        channels=1,
+        rate=cfg.sample_rate,
+        input=True,
+        frames_per_buffer=cfg.samples_per_frame,
+    )
+    chunks = []
+    n_target = int(max_record_time_s * cfg.sample_rate)
+    collected = 0
+    try:
+        # Poll in frame-size chunks; after each chunk run the shared
+        # endpointer over everything so far and stop once an utterance
+        # has both endpoints.
+        while collected < n_target:
+            data = stream.read(cfg.samples_per_frame, exception_on_overflow=False)
+            chunk = np.frombuffer(data, dtype=np.int16)
+            chunks.append(chunk)
+            collected += len(chunk)
+            if collected % (cfg.sample_rate // 4) < cfg.samples_per_frame:
+                samples = np.concatenate(chunks)
+                s, e = endpoint_signal(samples, cfg)
+                if s is not None and e is not None and e < len(samples):
+                    samples = samples[s:e]
+                    if file:
+                        write_wav(file, samples, cfg.sample_rate)
+                    return samples
+    finally:
+        stream.stop_stream()
+        stream.close()
+        pa.terminate()
+
+    samples = np.concatenate(chunks) if chunks else np.zeros(0, np.int16)
+    s, e = endpoint_signal(samples, cfg)
+    if s is not None:
+        samples = samples[s:e]
+    if file:
+        write_wav(file, samples, cfg.sample_rate)
+    return samples

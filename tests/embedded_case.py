@@ -4,10 +4,10 @@ must rebuild identical inputs in separate interpreters)."""
 
 import numpy as np
 
-from speech_recognition_tpu.data.synthetic import random_gmm_hmm, sample_hmm_features
-from speech_recognition_tpu.models.graph import build_word_graph, pad_graphs
-from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-from speech_recognition_tpu.utils.numerics import to_cost_matrix
+from speech_recognition_jax.data.synthetic import random_gmm_hmm, sample_hmm_features
+from speech_recognition_jax.models.graph import build_word_graph, pad_graphs
+from speech_recognition_jax.models.hmm import GMMHMM, HMMBank
+from speech_recognition_jax.utils.numerics import to_cost_matrix
 
 
 def make_embedded_case(seed: int = 5, n_words: int = 4, S: int = 3, M: int = 2,

@@ -25,7 +25,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-from speech_recognition_tpu.parallel.mesh import init_distributed
+from speech_recognition_jax.parallel.mesh import init_distributed
 
 init_distributed(coordinator_address=f"127.0.0.1:{port}", num_processes=2,
                  process_id=proc)
@@ -39,9 +39,9 @@ import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from embedded_case import make_embedded_case
-from speech_recognition_tpu.models.hmm import HMMBank
-from speech_recognition_tpu.parallel.mesh import make_mesh
-from speech_recognition_tpu.train.embedded_step import embedded_step
+from speech_recognition_jax.models.hmm import HMMBank
+from speech_recognition_jax.parallel.mesh import make_mesh
+from speech_recognition_jax.train.embedded_step import embedded_step
 
 bank, feats, n_frames, graph_np, eps_depth, _ = make_embedded_case()
 

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.models.graph import build_loop_graph, build_word_graph
-from speech_recognition_tpu.ops.viterbi import viterbi, viterbi_backtrace
-from speech_recognition_tpu.ops.viterbi_banded import (
+from speech_recognition_jax.models.graph import build_loop_graph, build_word_graph
+from speech_recognition_jax.ops.viterbi import viterbi, viterbi_backtrace
+from speech_recognition_jax.ops.viterbi_banded import (
     banded_arrays,
     banded_backtrace,
     viterbi_banded,
@@ -60,7 +60,7 @@ def test_state_major_layout_bit_parity(rng):
     """viterbi_banded_tb / banded_backtrace_tb ([T,S,B] layout) are
     bit-identical to the vmapped [B,S] kernels, incl. tie-breaking and
     variable lengths."""
-    from speech_recognition_tpu.ops.viterbi_banded import (
+    from speech_recognition_jax.ops.viterbi_banded import (
         banded_backtrace_tb,
         viterbi_banded_tb,
     )
@@ -102,158 +102,128 @@ def test_state_major_layout_bit_parity(rng):
                                           np.asarray(e_tb).T[i, :nf], err_msg=name)
 
 
-def test_eps_ranges_bit_parity(rng):
-    """Block-sparse eps relaxation (eps_ranges) is bit-identical to the
-    full [V,V] relaxation in both layouts, on every graph family incl.
-    an LM-weighted loop graph (dense word-pair blocks)."""
-    import jax
-
-    from speech_recognition_tpu.langmodel.bigram import fit_bigram
-    from speech_recognition_tpu.ops.viterbi_banded import (
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_state_major_matches_dense(rng, which):
+    """The production state-major scan + backtrace ([T, S, B] layout)
+    equals the dense kernel on every graph family, with forced ties and
+    variable lengths."""
+    from speech_recognition_jax.ops.viterbi_banded import (
         banded_backtrace_tb,
-        eps_ranges,
         viterbi_banded_tb,
     )
 
-    lm = fit_bigram([[0, 1, 2, 3], [3, 2, 1]], 4)
-    cases = graphs(rng) + [
-        ("loop+lm", build_loop_graph([ltr(5, rng) for _ in range(4)], lm=lm)),
-    ]
-    for name, g in cases:
-        bg = banded_arrays(g)
-        er = eps_ranges(bg)
-        assert er, name  # every composed graph has finite eps blocks
-        B, T = 3, 23
-        nll = rng.uniform(0, 5, (B, T, g.n_states)).astype(np.float32)
-        nfs = np.array([23, 11, 5], np.int32)
-        # vmapped layout
-        f0, bp0, eu0 = jax.vmap(
-            lambda x, nf: viterbi_banded(x, bg, nf, eps_depth=g.eps_depth)
-        )(jnp.asarray(nll), jnp.asarray(nfs))
-        f1, bp1, eu1 = jax.vmap(
-            lambda x, nf: viterbi_banded(x, bg, nf, eps_depth=g.eps_depth,
-                                         eps_ranges=er)
-        )(jnp.asarray(nll), jnp.asarray(nfs))
-        np.testing.assert_array_equal(np.asarray(f0), np.asarray(f1), err_msg=name)
-        np.testing.assert_array_equal(np.asarray(bp0), np.asarray(bp1), err_msg=name)
-        np.testing.assert_array_equal(np.asarray(eu0), np.asarray(eu1), err_msg=name)
-        # state-major layout
-        nll_tb = jnp.asarray(nll.transpose(1, 2, 0))
-        f2, bp2, eu2 = viterbi_banded_tb(nll_tb, bg, jnp.asarray(nfs),
-                                         eps_depth=g.eps_depth, eps_ranges=er)
-        np.testing.assert_array_equal(np.asarray(f0), np.asarray(f2).T, err_msg=name)
-        np.testing.assert_array_equal(
-            np.asarray(bp0), np.transpose(np.asarray(bp2), (2, 0, 1)), err_msg=name)
-        np.testing.assert_array_equal(
-            np.asarray(eu0), np.transpose(np.asarray(eu2), (2, 0, 1)), err_msg=name)
-
-
-def test_pallas_tb_bit_parity(rng):
-    """The Pallas state-major kernel (interpret mode on CPU) is
-    bit-identical to the XLA scan on every graph family, incl.
-    variable lengths and backpointers."""
-    from speech_recognition_tpu.ops.viterbi_banded import viterbi_banded_tb
-    from speech_recognition_tpu.ops.viterbi_banded_pallas import (
-        banded_topology,
-        viterbi_banded_tb_pallas,
-    )
-
-    for name, g in graphs(rng):
-        bg = banded_arrays(g)
-        topo = banded_topology(bg)
-        B, T = 4, 17
-        nll = rng.uniform(0, 5, (T, g.n_states, B)).astype(np.float32)
-        nll[:, 1::3, :] = nll[:, 0::3, :][:, : nll[:, 1::3, :].shape[1], :]  # ties
-        nfs = np.array([17, 9, 1, 13], np.int32)
-        f0, bp0, eu0 = viterbi_banded_tb(jnp.asarray(nll), bg, jnp.asarray(nfs),
+    name, g = graphs(rng)[which]
+    bg = banded_arrays(g)
+    B, T = 4, 17
+    nll = rng.uniform(0, 5, (T, g.n_states, B)).astype(np.float32)
+    nll[:, 1::3, :] = nll[:, 0::3, :][:, : nll[:, 1::3, :].shape[1], :]  # ties
+    nfs = np.array([17, 9, 1, 13], np.int32)
+    f_tb, bp_tb, eu_tb = viterbi_banded_tb(jnp.asarray(nll), bg,
+                                           jnp.asarray(nfs),
+                                           eps_depth=g.eps_depth)
+    ends = np.full((B,), int(np.asarray(bg.end_states)[-1]), np.int32)
+    s_tb, e_tb = banded_backtrace_tb(bp_tb, eu_tb, bg, jnp.asarray(ends),
+                                     jnp.asarray(nfs), eps_depth=g.eps_depth)
+    for i, nf in enumerate(nfs):
+        ref = viterbi(jnp.asarray(nll[:, :, i]), jnp.asarray(g.trans),
+                      jnp.asarray(g.init_cost), jnp.int32(nf),
+                      eps_trans=jnp.asarray(g.eps_trans),
+                      eps_depth=g.eps_depth)
+        np.testing.assert_allclose(np.asarray(f_tb)[:, i],
+                                   np.asarray(ref.final_cost), rtol=1e-6,
+                                   err_msg=name)
+        s_ref, e_ref = viterbi_backtrace(ref.bp, ref.eps_bp,
+                                         jnp.int32(ends[i]), jnp.int32(nf),
                                          eps_depth=g.eps_depth)
-        f1, bp1, eu1 = viterbi_banded_tb_pallas(jnp.asarray(nll), bg,
-                                                jnp.asarray(nfs), topo,
-                                                eps_depth=g.eps_depth,
-                                                interpret=True)
-        np.testing.assert_array_equal(np.asarray(f0), np.asarray(f1), err_msg=name)
-        np.testing.assert_array_equal(np.asarray(bp0), np.asarray(bp1), err_msg=name)
-        np.testing.assert_array_equal(np.asarray(eu0), np.asarray(eu1), err_msg=name)
-        # bank-mode input: compact [T, S_bank, B] block expanded in-kernel
-        n_bank = int(np.asarray(bg.bank_state).max()) + 1
-        nll_bank = rng.uniform(0, 5, (T, n_bank, B)).astype(np.float32)
-        nll_g = nll_bank[:, np.asarray(bg.bank_state), :]
-        f2, bp2, eu2 = viterbi_banded_tb(jnp.asarray(nll_g), bg, jnp.asarray(nfs),
-                                         eps_depth=g.eps_depth)
-        f3, bp3, eu3 = viterbi_banded_tb_pallas(jnp.asarray(nll_bank), bg,
-                                                jnp.asarray(nfs), topo,
-                                                eps_depth=g.eps_depth,
-                                                interpret=True, bank_input=True)
-        np.testing.assert_array_equal(np.asarray(f2), np.asarray(f3), err_msg=name)
-        np.testing.assert_array_equal(np.asarray(bp2), np.asarray(bp3), err_msg=name)
-        np.testing.assert_array_equal(np.asarray(eu2), np.asarray(eu3), err_msg=name)
-        # Pallas backtrace (one-hot plane) vs the XLA scan
-        from speech_recognition_tpu.ops.viterbi_banded import banded_backtrace_tb
-        from speech_recognition_tpu.ops.viterbi_banded_pallas import (
-            banded_backtrace_tb_pallas,
-        )
-
-        ends = jnp.asarray(np.full((B,), int(np.asarray(bg.end_states)[-1]),
-                                   np.int32))
-        s_x, e_x = banded_backtrace_tb(bp0, eu0, bg, ends, jnp.asarray(nfs),
-                                       eps_depth=g.eps_depth)
-        s_p, e_p = banded_backtrace_tb_pallas(bp0, eu0, bg, ends,
-                                              jnp.asarray(nfs), topo,
-                                              eps_depth=g.eps_depth,
-                                              interpret=True)
-        for i, nf in enumerate(nfs):
-            np.testing.assert_array_equal(np.asarray(s_x)[:nf, i],
-                                          np.asarray(s_p)[:nf, i], err_msg=name)
-            np.testing.assert_array_equal(np.asarray(e_x)[:nf, i],
-                                          np.asarray(e_p)[:nf, i], err_msg=name)
+        np.testing.assert_array_equal(np.asarray(s_tb)[:nf, i],
+                                      np.asarray(s_ref)[:nf], err_msg=name)
+        np.testing.assert_array_equal(np.asarray(e_tb)[:nf, i],
+                                      np.asarray(e_ref)[:nf], err_msg=name)
 
 
-def test_decode_banded_batch_pallas_branch(rng):
-    """The full production Pallas branch of _decode_banded_batch
-    (bank-mode emission expansion, padded bp passthrough, Pallas
-    backtrace, end-cost wiring) equals the XLA branch — interpret mode
-    exercises the exact glue that runs on TPU."""
-    import jax
+def _planted_bank(seed, n_models=4, n_states=3, n_mix=1, dim=6, sep=6.0):
+    from speech_recognition_jax.data.synthetic import random_gmm_hmm
+    from speech_recognition_jax.models.hmm import GMMHMM, HMMBank
+    from speech_recognition_jax.utils.numerics import to_cost_matrix
 
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-    from speech_recognition_tpu.decode.connected import (
+    nprng = np.random.default_rng(seed)
+    params = [random_gmm_hmm(nprng, n_states=n_states, n_mix=n_mix, dim=dim,
+                             sep=sep) for _ in range(n_models)]
+    bank = HMMBank.stack([GMMHMM(
+        means=jnp.asarray(p["means"], jnp.float32),
+        log_vars=jnp.log(jnp.asarray(p["variances"], jnp.float32)),
+        log_weights=jnp.log(jnp.asarray(p["weights"], jnp.float32)),
+        trans_cost=jnp.asarray(to_cost_matrix(p["trans"])),
+    ) for p in params])
+    return bank, params, nprng
+
+
+def test_decode_banded_batch_matches_dense_graph(rng):
+    """The production banded batch (bank emissions gathered to graph
+    states, state-major scan, backtrace, end-cost wiring) equals the
+    dense-graph batch decoder on the same bank and features."""
+    from speech_recognition_jax.decode.connected import (
         _decode_banded_batch,
+        _decode_graph_batch,
         connected_graph_arrays,
     )
-    from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-    from speech_recognition_tpu.ops.viterbi_banded_pallas import banded_topology
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
-    import jax.numpy as jnp
 
-    nprng = np.random.default_rng(3)
-    models = []
-    for _ in range(4):
-        p = random_gmm_hmm(nprng, n_states=3, n_mix=2, dim=8, sep=2.0)
-        models.append(GMMHMM(
-            means=jnp.asarray(p["means"], jnp.float32),
-            log_vars=jnp.log(jnp.asarray(p["variances"], jnp.float32)),
-            log_weights=jnp.log(jnp.asarray(p["weights"], jnp.float32)),
-            trans_cost=jnp.asarray(to_cost_matrix(p["trans"])),
-        ))
-    bank = HMMBank.stack(models)
+    bank, _, nprng = _planted_bank(3, n_mix=2, dim=8, sep=2.0)
     graph = connected_graph_arrays(bank, 3)
     bg = banded_arrays(graph)
-    topo = banded_topology(bg)
     B, T = 3, 19
     feats = jnp.asarray(nprng.standard_normal((B, T, 8)), jnp.float32)
-    nfs = jnp.asarray(np.array([19, 11, 4], np.int32))
+    nfs = jnp.asarray(np.array([19, 11, 10], np.int32))
     s0, e0, c0 = _decode_banded_batch(bank, feats, nfs, bg,
                                       eps_depth=graph.eps_depth)
-    s1, e1, c1 = _decode_banded_batch(bank, feats, nfs, bg,
-                                      eps_depth=graph.eps_depth,
-                                      pallas_topo=topo, pallas_interpret=True)
-    # costs are allclose, not bit-equal: the Pallas branch computes the
-    # emission GEMM output-transposed ([U,B,T] layout, bank_nll_ubt) so
-    # the float reduction order differs; the DP itself stays exact
-    np.testing.assert_allclose(np.asarray(c0), np.asarray(c1), rtol=1e-5)
+    s1, e1, c1 = _decode_graph_batch(
+        bank, feats, nfs, jnp.asarray(graph.trans),
+        jnp.asarray(graph.eps_trans), jnp.asarray(graph.init_cost),
+        jnp.asarray(graph.end_states), jnp.asarray(graph.end_bonus),
+        jnp.asarray(graph.bank_state), eps_depth=graph.eps_depth)
+    np.testing.assert_allclose(np.asarray(c0), np.asarray(c1), rtol=1e-6)
     for i, nf in enumerate(np.asarray(nfs)):
-        np.testing.assert_array_equal(np.asarray(s0)[i, :nf], np.asarray(s1)[i, :nf])
-        np.testing.assert_array_equal(np.asarray(e0)[i, :nf], np.asarray(e1)[i, :nf])
+        np.testing.assert_array_equal(np.asarray(s0)[i, :nf],
+                                      np.asarray(s1)[i, :nf])
+        np.testing.assert_array_equal(np.asarray(e0)[i, :nf],
+                                      np.asarray(e1)[i, :nf])
+
+
+@pytest.mark.parametrize("kind", ["loop", "sausage"])
+def test_decode_connected_recovers_planted_words(kind):
+    """Planted audio with REPEATED words (an eps re-entry to the same
+    slot) and variable lengths: the production decode returns the
+    planted words, identical to the dense backend, on loop and sausage
+    graphs."""
+    from speech_recognition_jax.decode.connected import (
+        connected_graph_arrays,
+        decode_connected,
+    )
+
+    bank, params, nprng = _planted_bank(7)
+    seqs = [[0, 1, 1, 2], [3, 0], [2, 2, 2]]
+    fs, nfs = [], []
+    for seq in seqs:
+        rows = []
+        for w in seq:
+            for s in range(3):
+                rows += [params[w]["means"][s, 0]
+                         + 0.1 * nprng.standard_normal(6)] * 3
+        fs.append(np.asarray(rows, np.float32))
+        nfs.append(len(rows))
+    fb = np.zeros((len(seqs), max(nfs), 6), np.float32)
+    for i, x in enumerate(fs):
+        fb[i, : len(x)] = x
+    nfs = np.asarray(nfs, np.int32)
+    graph = (build_loop_graph([p["trans"] for p in params],
+                              word_insertion_cost=0.2) if kind == "loop"
+             else connected_graph_arrays(bank, 4))
+    got, costs = decode_connected(bank, graph, fb, nfs)
+    dense, costs_d = decode_connected(bank, graph, fb, nfs, backend="dense")
+    if kind == "loop":
+        assert got == seqs
+    assert got == dense
+    np.testing.assert_allclose(costs, costs_d, rtol=1e-5)
 
 
 def test_need_bp_false_same_costs(rng):
@@ -269,10 +239,10 @@ def test_need_bp_false_same_costs(rng):
 
 
 def test_decode_connected_backends_agree(rng):
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-    from speech_recognition_tpu.decode.connected import decode_connected
-    from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
+    from speech_recognition_jax.data.synthetic import random_gmm_hmm
+    from speech_recognition_jax.decode.connected import decode_connected
+    from speech_recognition_jax.models.hmm import GMMHMM, HMMBank
+    from speech_recognition_jax.utils.numerics import to_cost_matrix
 
     n_words, S, M, D = 3, 4, 2, 6
     params = [random_gmm_hmm(rng, S, M, D, sep=4.0) for _ in range(n_words)]
@@ -296,29 +266,6 @@ def test_decode_connected_backends_agree(rng):
     np.testing.assert_allclose(c_b, c_d, rtol=1e-5)
 
 
-def test_pallas_viterbi_interpret_matches(rng):
-    """Pallas kernel parity in interpreter mode (S = one lane tile)."""
-    from speech_recognition_tpu.ops.pallas_kernels import pallas_viterbi
-    from speech_recognition_tpu.utils.numerics import POS_INF
-    from speech_recognition_tpu.models.hmm import linear_init_cost
-
-    B, T, S = 2, 16, 128
-    nll = rng.uniform(0, 5, (B, T, S)).astype(np.float32)
-    trans = np.asarray(ltr(S, rng), np.float32)
-    trans[~np.isfinite(trans)] = POS_INF
-    init = np.asarray(linear_init_cost(S))
-    nf = np.asarray([16, 9], np.int32)
-    fin, bp, eps_bp = pallas_viterbi(
-        jnp.asarray(nll), jnp.asarray(trans), jnp.asarray(init), jnp.asarray(nf),
-        interpret=True,
-    )
-    for b in range(B):
-        ref = viterbi(jnp.asarray(nll[b]), jnp.asarray(trans), jnp.asarray(init), jnp.int32(nf[b]))
-        np.testing.assert_allclose(np.asarray(fin[b]), np.asarray(ref.final_cost), rtol=1e-5)
-        n = int(nf[b])
-        np.testing.assert_array_equal(np.asarray(bp[b][:n]), np.asarray(ref.bp[:n]))
-
-
 def test_banded_beam_wide_is_exact(rng):
     _, g = graphs(rng)[0]
     bg = banded_arrays(g)
@@ -334,263 +281,20 @@ def test_banded_beam_wide_is_exact(rng):
     assert np.isfinite(np.asarray(narrow)[e])
 
 
-def test_pallas_mfcc_interpret_matches(rng):
-    """Fused Pallas spectral chain == the XLA frontend (interpret mode)."""
-    import jax.experimental.pallas as pl
-
-    import speech_recognition_tpu.ops.pallas_kernels as pk
-    from speech_recognition_tpu.config import FrontendConfig
-    from speech_recognition_tpu.ops.frontend import mfcc, padded_length
-
-    orig = pl.pallas_call
-
-    def interp(*a, **k):
-        k.setdefault("interpret", True)
-        return orig(*a, **k)
-
-    pk.pl.pallas_call = interp
-    try:
-        cfg = FrontendConfig()
-        L = padded_length(cfg, 8000)
-        sig = np.zeros((2, L), np.float32)
-        n = [8000, 5321]
-        for i in range(2):
-            sig[i, : n[i]] = rng.standard_normal(n[i]) * 2000
-        ceps, nf = pk.pallas_mfcc(jnp.asarray(sig), jnp.asarray(np.asarray(n, np.int32)), cfg)
-        for i in range(2):
-            ref, rnf = mfcc(jnp.asarray(sig[i]), np.int32(n[i]), cfg)
-            assert int(nf[i]) == int(rnf)
-            np.testing.assert_allclose(
-                np.asarray(ceps[i])[: int(rnf)], np.asarray(ref)[: int(rnf)],
-                rtol=1e-4, atol=1e-3,
-            )
-    finally:
-        pk.pl.pallas_call = orig
-
-
-def test_pallas_value_backtrace_bit_parity(rng):
-    """emit_eps_prev + the value-carried backtrace (the production
-    headline path) are bit-identical to the one-hot backtrace and the
-    XLA scan on uniform graphs, bank-mode, variable lengths."""
-    from speech_recognition_tpu.ops.viterbi_banded import (
-        banded_backtrace_tb,
-        viterbi_banded_tb,
-    )
-    from speech_recognition_tpu.ops.viterbi_banded_pallas import (
-        banded_backtrace_tb_pallas,
-        banded_topology,
-        viterbi_banded_tb_pallas,
-    )
-
-    for name, g in graphs(rng):
-        bg = banded_arrays(g)
-        topo = banded_topology(bg)
-        if not topo.uniform_w or g.eps_depth != 1:
-            continue
-        assert not (set(topo.word_starts) & set(topo.word_ends))
-        B, T = 4, 19
-        n_bank = int(np.asarray(bg.bank_state).max()) + 1
-        nll_bank = rng.uniform(0, 5, (T, n_bank, B)).astype(np.float32)
-        nll_g = nll_bank[:, np.asarray(bg.bank_state), :]
-        nfs = np.array([19, 9, 1, 13], np.int32)
-        # XLA reference
-        f_x, bp_x, eu_x = viterbi_banded_tb(
-            jnp.asarray(nll_g), bg, jnp.asarray(nfs), eps_depth=1)
-        # Pallas forward WITH the eps_prev side plane: first three
-        # outputs must be unchanged vs the XLA kernel
-        f_p, bp_p, eu_p, ep_p = viterbi_banded_tb_pallas(
-            jnp.asarray(nll_bank), bg, jnp.asarray(nfs), topo,
-            eps_depth=1, interpret=True, bank_input=True,
-            emit_eps_prev=True)
-        np.testing.assert_array_equal(np.asarray(f_x), np.asarray(f_p),
-                                      err_msg=name)
-        np.testing.assert_array_equal(np.asarray(bp_x), np.asarray(bp_p),
-                                      err_msg=name)
-        np.testing.assert_array_equal(np.asarray(eu_x), np.asarray(eu_p),
-                                      err_msg=name)
-        ends = jnp.asarray(np.full((B,), int(np.asarray(bg.end_states)[-1]),
-                                   np.int32))
-        s_x, e_x = banded_backtrace_tb(bp_x, eu_x, bg, ends,
-                                       jnp.asarray(nfs), eps_depth=1)
-        # one-hot Pallas backtrace (no eps_prev) and the value-carried
-        # one (with) must both equal the XLA walk
-        s_p1, e_p1 = banded_backtrace_tb_pallas(
-            bp_p, eu_p, bg, ends, jnp.asarray(nfs), topo, eps_depth=1,
-            interpret=True)
-        s_p2, e_p2 = banded_backtrace_tb_pallas(
-            bp_p, eu_p, bg, ends, jnp.asarray(nfs), topo, eps_depth=1,
-            interpret=True, eps_prev=ep_p)
-        for i, nf in enumerate(nfs):
-            for s_p, e_p in ((s_p1, e_p1), (s_p2, e_p2)):
-                np.testing.assert_array_equal(np.asarray(s_x)[:nf, i],
-                                              np.asarray(s_p)[:nf, i],
-                                              err_msg=name)
-                np.testing.assert_array_equal(np.asarray(e_x)[:nf, i],
-                                              np.asarray(e_p)[:nf, i],
-                                              err_msg=name)
-        # padded-plane path (production wiring): forward keeps padded
-        # planes, value backtrace converts back at the end
-        f_q, bp_q, eu_q, ep_q = viterbi_banded_tb_pallas(
-            jnp.asarray(nll_bank), bg, jnp.asarray(nfs), topo,
-            eps_depth=1, interpret=True, bank_input=True,
-            emit_eps_prev=True, return_padded_bp=True)
-        s_q, e_q = banded_backtrace_tb_pallas(
-            bp_q, eu_q, bg, ends, jnp.asarray(nfs), topo, eps_depth=1,
-            interpret=True, eps_prev=ep_q)
-        for i, nf in enumerate(nfs):
-            np.testing.assert_array_equal(np.asarray(s_x)[:nf, i],
-                                          np.asarray(s_q)[:nf, i], err_msg=name)
-            np.testing.assert_array_equal(np.asarray(e_x)[:nf, i],
-                                          np.asarray(e_q)[:nf, i], err_msg=name)
-
-
-def test_pallas_fused_emission_interpret_matches(rng):
-    """fuse_emission (in-kernel GMM GEMM + mixture lse) == the unfused
-    Pallas path fed with producer NLLs: equal costs to f32 GEMM
-    reassociation, identical paths on non-tie random cases."""
-    import jax
-
-    from speech_recognition_tpu.decode.connected import connected_graph_arrays
-    from speech_recognition_tpu.models.hmm import bank_nll_ubt
-    from speech_recognition_tpu.ops.gmm import augment_dtb, gmm_emission_weights
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-    from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-    from speech_recognition_tpu.ops.viterbi_banded_pallas import (
-        banded_backtrace_tb_pallas,
-        banded_topology,
-        viterbi_banded_tb_pallas,
-    )
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
-
-    nprng = np.random.default_rng(11)
-    models = []
-    for _ in range(4):
-        p = random_gmm_hmm(nprng, n_states=3, n_mix=2, dim=8, sep=2.0)
-        models.append(GMMHMM(
-            means=jnp.asarray(p["means"], jnp.float32),
-            log_vars=jnp.log(jnp.asarray(p["variances"], jnp.float32)),
-            log_weights=jnp.log(jnp.asarray(p["weights"], jnp.float32)),
-            trans_cost=jnp.asarray(to_cost_matrix(p["trans"])),
-        ))
-    bank = HMMBank.stack(models)
-    graph = connected_graph_arrays(bank, 3)
-    bg = banded_arrays(graph)
-    topo = banded_topology(bg)
-    b, t = 4, 21
-    feats = jnp.asarray(rng.standard_normal((b, t, bank.means.shape[-1])),
-                        jnp.float32)
-    nf = jnp.asarray([t, 9, 13, 1], jnp.int32)
-
-    nll_ubt = bank_nll_ubt(bank, feats, nf)
-    ref = viterbi_banded_tb_pallas(
-        nll_ubt, bg, nf, topo, eps_depth=graph.eps_depth, bank_input=True,
-        return_padded_bp=True, input_ubt=True, emit_eps_prev=True,
-        interpret=True)
-
-    w, lw = gmm_emission_weights(*bank.flat_states())
-    xa = augment_dtb(feats)
-    out = viterbi_banded_tb_pallas(
-        xa, bg, nf, topo, eps_depth=graph.eps_depth,
-        return_padded_bp=True, input_ubt=True, emit_eps_prev=True,
-        interpret=True, fuse_emission=True, bank_gemm=(w, lw))
-
-    np.testing.assert_allclose(np.asarray(out[0]), np.asarray(ref[0]),
-                               rtol=1e-5, atol=1e-5)
-    ends = bg.end_states[jnp.argmin(np.asarray(ref[0])[
-        np.asarray(bg.end_states), :], axis=0)]
-    s_r, f_r = banded_backtrace_tb_pallas(
-        ref[1], ref[2], bg, ends, nf, topo, eps_depth=graph.eps_depth,
-        eps_prev=ref[3], interpret=True)
-    s_f, f_f = banded_backtrace_tb_pallas(
-        out[1], out[2], bg, ends, nf, topo, eps_depth=graph.eps_depth,
-        eps_prev=out[3], interpret=True)
-    nfs = np.asarray(nf)
-    for i in range(b):
-        np.testing.assert_array_equal(
-            np.asarray(s_r)[: nfs[i], i], np.asarray(s_f)[: nfs[i], i])
-        np.testing.assert_array_equal(
-            np.asarray(f_r)[: nfs[i], i], np.asarray(f_f)[: nfs[i], i])
-
-
-def test_wordtrace_decode_matches_states_path(rng):
-    """Backtrace-free word-trace decode (tau carry + eps-event chain
-    walk, interpret mode) produces the same word sequences and costs as
-    the states-path decode on loop AND sausage graphs, with repeated
-    words and variable lengths."""
-    import jax.numpy as jnp
-
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-    from speech_recognition_tpu.decode.connected import (
-        _decode_banded_words,
-        connected_graph_arrays,
-        decode_connected,
-    )
-    from speech_recognition_tpu.models.graph import build_loop_graph
-    from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-    from speech_recognition_tpu.ops.viterbi_banded_pallas import (
-        banded_topology,
-    )
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
-
-    nprng = np.random.default_rng(7)
-    models, params = [], []
-    for _ in range(4):
-        p = random_gmm_hmm(nprng, n_states=3, n_mix=1, dim=6, sep=6.0)
-        params.append(p)
-        models.append(GMMHMM(
-            means=jnp.asarray(p["means"], jnp.float32),
-            log_vars=jnp.log(jnp.asarray(p["variances"], jnp.float32)),
-            log_weights=jnp.log(jnp.asarray(p["weights"], jnp.float32)),
-            trans_cost=jnp.asarray(to_cost_matrix(p["trans"])),
-        ))
-    bank = HMMBank.stack(models)
-
-    # planted audio with a REPEATED word (eps re-entry to the same slot)
-    seqs = [[0, 1, 1, 2], [3, 0], [2, 2, 2]]
-    fs, nfs = [], []
-    for seq in seqs:
-        rows = []
-        for w in seq:
-            for s in range(3):
-                rows += [params[w]["means"][s, 0]
-                         + 0.1 * nprng.standard_normal(6)] * 3
-        fs.append(np.asarray(rows, np.float32))
-        nfs.append(len(rows))
-    T = max(nfs)
-    fb = np.zeros((len(seqs), T, 6), np.float32)
-    for i, x in enumerate(fs):
-        fb[i, : len(x)] = x
-    fb = jnp.asarray(fb)
-    nfs = jnp.asarray(np.asarray(nfs, np.int32))
-
-    for graph in (build_loop_graph([p["trans"] for p in params],
-                                   word_insertion_cost=0.2),
-                  connected_graph_arrays(bank, 4)):
-        bg = banded_arrays(graph)
-        topo = banded_topology(bg)
-        assert topo.uniform_w
-        ref_seqs, ref_costs = decode_connected(bank, graph, fb, nfs)
-        wt_seqs, wt_costs = _decode_banded_words(
-            bank, graph, bg, fb, nfs, topo, interpret=True)
-        assert wt_seqs == ref_seqs
-        np.testing.assert_allclose(np.asarray(wt_costs),
-                                   np.asarray(ref_costs), rtol=1e-5)
-
-
 def test_states_to_words_device_matches_host(rng):
     """The device words-out compaction (states_to_words_device — the
     production wav->word-ids tail) equals the host per-frame loop on a
     LOOP graph with repeated words, where the epsilon-boundary flag is
     what separates consecutive repeats."""
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-    from speech_recognition_tpu.decode.connected import (
+    from speech_recognition_jax.data.synthetic import random_gmm_hmm
+    from speech_recognition_jax.decode.connected import (
         _decode_banded_batch,
         states_to_words,
         states_to_words_device,
     )
-    from speech_recognition_tpu.models.graph import build_loop_graph
-    from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
+    from speech_recognition_jax.models.graph import build_loop_graph
+    from speech_recognition_jax.models.hmm import GMMHMM, HMMBank
+    from speech_recognition_jax.utils.numerics import to_cost_matrix
 
     n_words, S, M, D = 4, 3, 1, 5
     params = [random_gmm_hmm(rng, S, M, D, sep=5.0) for _ in range(n_words)]

@@ -5,19 +5,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.langmodel.bigram import fit_bigram
-from speech_recognition_tpu.models.graph import build_loop_graph
-from speech_recognition_tpu.models.lexgraph import (
+from speech_recognition_jax.langmodel.bigram import fit_bigram
+from speech_recognition_jax.models.graph import build_loop_graph
+from speech_recognition_jax.models.lexgraph import (
     build_lex_graph,
     lex_words_from_path,
 )
-from speech_recognition_tpu.ops.beam import beam_backtrace, beam_search, beam_tables
-from speech_recognition_tpu.ops.viterbi_banded import (
+from speech_recognition_jax.ops.beam import beam_backtrace, beam_search, beam_tables
+from speech_recognition_jax.ops.viterbi_banded import (
     banded_arrays,
     banded_backtrace,
     viterbi_banded,
 )
-from speech_recognition_tpu.utils.numerics import POS_INF
+from speech_recognition_jax.utils.numerics import POS_INF
 
 
 def ltr(S, rng, skip=True):
@@ -83,7 +83,7 @@ def test_full_width_beam_is_exact_loop_graph(rng):
 
     T = 33
     nll = rng.uniform(0, 5, (T, g.n_states)).astype(np.float32)
-    from speech_recognition_tpu.decode.connected import states_to_words
+    from speech_recognition_jax.decode.connected import states_to_words
 
     c_ref, w_ref = exact_decode(
         bg, nll, T, lambda s, f: states_to_words(g, s, T, f))
@@ -144,13 +144,13 @@ def test_narrow_beam_decodes_favorable_path(rng):
 
 def test_beam_decode_lextree_api(rng):
     """Batched API vs the exact decode on GMM-bank features."""
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-    from speech_recognition_tpu.decode.lextree import (
+    from speech_recognition_jax.data.synthetic import random_gmm_hmm
+    from speech_recognition_jax.decode.lextree import (
         beam_decode_lextree,
         decode_lextree,
     )
-    from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
+    from speech_recognition_jax.models.hmm import GMMHMM, HMMBank
+    from speech_recognition_jax.utils.numerics import to_cost_matrix
     import jax
 
     units = list("abcd")
@@ -205,7 +205,7 @@ def test_beam_decode_lextree_api(rng):
     # acoustic + LM sequence cost (bigram applied at each word exit with
     # the carried predecessor, start row at the first exit, end cost at
     # the final leaf)
-    from speech_recognition_tpu.langmodel.bigram import fit_bigram, sequence_cost
+    from speech_recognition_jax.langmodel.bigram import fit_bigram, sequence_cost
 
     lm = fit_bigram([[0, 3], [4, 2], [1]], len(words))
     seqs_lm, costs_lm = beam_decode_lextree(bank, lexg, x, nfs,

@@ -1,20 +1,20 @@
-"""Stress: 100+-word vocabularies — banded, Pallas and state-sharded
-kernels stay bit-identical to the dense reference kernel, including
+"""Stress: 100+-word vocabularies — banded and state-sharded kernels
+stay bit-identical to the dense reference kernel, including
 beyond the 127-word int8 limit (eps origins ride the int32 side
 plane)."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from speech_recognition_tpu.models.graph import build_loop_graph
-from speech_recognition_tpu.ops.viterbi import viterbi, viterbi_backtrace
-from speech_recognition_tpu.ops.viterbi_banded import (
+from speech_recognition_jax.models.graph import build_loop_graph
+from speech_recognition_jax.ops.viterbi import viterbi, viterbi_backtrace
+from speech_recognition_jax.ops.viterbi_banded import (
     banded_arrays,
     banded_backtrace,
     viterbi_banded,
 )
-from speech_recognition_tpu.parallel.mesh import make_mesh
-from speech_recognition_tpu.parallel.sharded_decode import (
+from speech_recognition_jax.parallel.mesh import make_mesh
+from speech_recognition_jax.parallel.sharded_decode import (
     make_sharded_banded_viterbi,
     pad_banded_for_sharding,
 )
@@ -52,17 +52,14 @@ def test_100_word_loop_graph(rng):
 
 
 def test_vocab_beyond_int8_cap(rng):
-    """200-word loop graph — beyond the round-1 124-word cap.  The eps
+    """200-word loop graph — beyond the 127-word int8 cap.  The eps
     side plane widens to int32; costs, backtraced states and boundary
-    flags stay bit-identical to the dense kernel, on both the XLA scan
-    and the Pallas kernel (interpret mode)."""
-    from speech_recognition_tpu.ops.viterbi_banded import (
+    flags stay bit-identical to the dense kernel, on both the vmapped
+    and the state-major layouts."""
+    from speech_recognition_jax.ops.viterbi_banded import (
         _eps_u_dtype,
+        banded_backtrace_tb,
         viterbi_banded_tb,
-    )
-    from speech_recognition_tpu.ops.viterbi_banded_pallas import (
-        banded_topology,
-        viterbi_banded_tb_pallas,
     )
 
     n_words, s = 200, 3
@@ -95,12 +92,28 @@ def test_vocab_beyond_int8_cap(rng):
     np.testing.assert_array_equal(np.asarray(s_ref), np.asarray(s_b))
     np.testing.assert_array_equal(np.asarray(f_ref), np.asarray(f_b))
 
-    # Pallas kernel on the same big-vocab graph (interpret mode)
-    topo = banded_topology(bg)
-    nll_tb = jnp.asarray(nll[:, :, None])  # B = 1
-    f_tb, bp_tb, eu_tb = viterbi_banded_tb(nll_tb, bg, jnp.asarray([T]))
-    f_p, bp_p, eu_p = viterbi_banded_tb_pallas(nll_tb, bg, jnp.asarray([T]),
-                                               topo, interpret=True)
-    np.testing.assert_array_equal(np.asarray(f_tb), np.asarray(f_p))
-    np.testing.assert_array_equal(np.asarray(bp_tb), np.asarray(bp_p))
-    np.testing.assert_array_equal(np.asarray(eu_tb), np.asarray(eu_p))
+    # state-major layout on the same graph (batch of 2: the full and a
+    # truncated utterance)
+    nfs = np.array([T, T - 7], np.int32)
+    nll_tb = jnp.asarray(np.stack([nll, nll], axis=-1))
+    f_tb, bp_tb, eu_tb = viterbi_banded_tb(nll_tb, bg, jnp.asarray(nfs))
+    assert np.asarray(eu_tb).dtype == np.int32
+    np.testing.assert_array_equal(np.asarray(f_tb)[:, 0], np.asarray(fin))
+    ref2 = viterbi(jnp.asarray(nll), jnp.asarray(g.trans),
+                   jnp.asarray(g.init_cost), jnp.int32(nfs[1]),
+                   eps_trans=jnp.asarray(g.eps_trans), eps_depth=1)
+    np.testing.assert_allclose(np.asarray(f_tb)[:, 1],
+                               np.asarray(ref2.final_cost), rtol=1e-6)
+    end2 = int(g.end_states[np.argmin(np.asarray(ref2.final_cost)[g.end_states])])
+    s_tb, f_tbf = banded_backtrace_tb(bp_tb, eu_tb, bg,
+                                      jnp.asarray([end, end2], np.int32),
+                                      jnp.asarray(nfs))
+    s_ref2, f_ref2 = viterbi_backtrace(ref2.bp, ref2.eps_bp, jnp.int32(end2),
+                                       jnp.int32(nfs[1]))
+    np.testing.assert_array_equal(np.asarray(s_tb)[:, 0], np.asarray(s_ref))
+    np.testing.assert_array_equal(np.asarray(f_tbf)[:, 0], np.asarray(f_ref))
+    n2 = int(nfs[1])
+    np.testing.assert_array_equal(np.asarray(s_tb)[:n2, 1],
+                                  np.asarray(s_ref2)[:n2])
+    np.testing.assert_array_equal(np.asarray(f_tbf)[:n2, 1],
+                                  np.asarray(f_ref2)[:n2])

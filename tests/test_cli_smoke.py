@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.cli import main
+from speech_recognition_jax.cli import main
 
 
 def test_cli_pipeline(tmp_path, capsys, monkeypatch):
@@ -154,7 +154,7 @@ def test_cli_align(tmp_path, capsys, monkeypatch):
         for a, b in zip(r["segments"], r["segments"][1:]):
             assert a["end_s"] == b["start_s"]
         # words (ignoring silence) spell the filename transcript
-        from speech_recognition_tpu.data.aurora import transcript_from_filename
+        from speech_recognition_jax.data.aurora import transcript_from_filename
 
         words = [s["word"] for s in r["segments"] if s["word"] != "sil"]
         # consecutive duplicates can appear only for repeated digits;

@@ -4,15 +4,15 @@ import jax
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.config import FrontendConfig, HMMConfig, TrainConfig
-from speech_recognition_tpu.data.synthetic import SyntheticDigits
-from speech_recognition_tpu.models.hmm import HMMBank
-from speech_recognition_tpu.ops.frontend import mfcc39, padded_length
-from speech_recognition_tpu.train.continuous import (
+from speech_recognition_jax.config import FrontendConfig, HMMConfig, TrainConfig
+from speech_recognition_jax.data.synthetic import SyntheticDigits
+from speech_recognition_jax.models.hmm import HMMBank
+from speech_recognition_jax.ops.frontend import mfcc39, padded_length
+from speech_recognition_jax.train.continuous import (
     continuous_train,
     harvest_state_ids,
 )
-from speech_recognition_tpu.train.isolated import fit_hmm
+from speech_recognition_jax.train.isolated import fit_hmm
 
 
 def test_harvest_state_ids():
@@ -77,7 +77,7 @@ def test_continuous_training_improves_connected_decode():
 
     # decode the held-out connected test set with per-utterance-length
     # sausages (known length, like the reference's fixed-slot decode)
-    from speech_recognition_tpu.decode.connected import (
+    from speech_recognition_jax.decode.connected import (
         connected_graph_arrays,
         decode_connected,
     )
@@ -86,7 +86,7 @@ def test_continuous_training_improves_connected_decode():
 
     def wer_digits(b):
         errs = tot = 0
-        from speech_recognition_tpu.utils.metrics import edit_distance
+        from speech_recognition_jax.utils.metrics import edit_distance
 
         for i, u in enumerate(test):
             g = connected_graph_arrays(b, len(u.labels))
@@ -107,19 +107,19 @@ def test_word_confidence_tracks_noise(rng):
     noisy decodes score lower; values are valid posteriors."""
     import jax.numpy as jnp
 
-    from speech_recognition_tpu.decode.confidence import (
+    from speech_recognition_jax.decode.confidence import (
         path_posteriors,
         word_confidence,
     )
-    from speech_recognition_tpu.decode.connected import (
+    from speech_recognition_jax.decode.connected import (
         _decode_banded_batch,
         decode_connected,
     )
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-    from speech_recognition_tpu.models.graph import build_loop_graph
-    from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-    from speech_recognition_tpu.ops.viterbi_banded import banded_arrays
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
+    from speech_recognition_jax.data.synthetic import random_gmm_hmm
+    from speech_recognition_jax.models.graph import build_loop_graph
+    from speech_recognition_jax.models.hmm import GMMHMM, HMMBank
+    from speech_recognition_jax.ops.viterbi_banded import banded_arrays
+    from speech_recognition_jax.utils.numerics import to_cost_matrix
 
     params = [random_gmm_hmm(rng, n_states=3, n_mix=1, dim=6, sep=6.0)
               for _ in range(4)]

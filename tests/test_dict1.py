@@ -1,12 +1,9 @@
 """The reference's own 6,250-word dictionary
 (``/root/reference/tests/test_data/dict1.txt``) on the production lex
-path: full-dict plan structure (block-banded staircase selectors +
-factored expansion fit the VMEM envelope), and interpret-mode kernel
-bit-parity vs the XLA scan on a deterministic subset large enough to
-exercise the banded format (multiple 128-row blocks per level).
-
-The on-chip twin (full dict, real TPU) is scripts/exp_dict1_chip.py;
-its parity assert and throughput rows are recorded in RESULTS.md.
+path: layout parity of the state-major scan on a deterministic subset,
+the flat-LM lattice identity at full dictionary scale, and batch
+independence of the bigram decode.  Skipped where the reference data is
+absent.
 """
 
 import os
@@ -15,16 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.models.lexgraph import build_lex_graph
-from speech_recognition_tpu.ops.viterbi_banded import (
+from speech_recognition_jax.models.lexgraph import build_lex_graph
+from speech_recognition_jax.ops.viterbi_banded import (
     banded_backtrace_tb,
     viterbi_banded_tb,
-)
-from speech_recognition_tpu.ops.viterbi_lex_pallas import (
-    lex_backtrace_soa_pallas,
-    lex_pallas_batch_chunk,
-    lex_pallas_plan,
-    viterbi_lex_pallas,
 )
 
 DICT1 = "/root/reference/tests/test_data/dict1.txt"
@@ -50,101 +41,60 @@ def ltr(S, rng):
 
 
 @pytest.mark.skipif(not os.path.exists(DICT1), reason="reference dict absent")
-def test_dict1_full_plan_fits(rng):
-    """The FULL 6,247-word dictionary builds a Pallas plan inside the
-    single-chip VMEM envelope (the round-2 ceiling was ~2k words)."""
-    words = load_dict1()
-    assert len(words) >= 6200
-    units = sorted(set("".join(words)))
-    unit_ids = {ch: i for i, ch in enumerate(units)}
-    lexg = build_lex_graph(words, [ltr(3, rng) for _ in units], unit_ids,
-                           word_insertion_cost=0.5)
-    plan = lex_pallas_plan(lexg)
-    assert plan.topo.sel_banded and plan.topo.expand_factored
-    assert plan.topo.eps_rowconst
-    # selectors are block-banded: bytes ~ A_nr * W, not sum n_d*n_{d+1}
-    sel_bytes = sum(int(np.prod(s.shape)) * s.dtype.itemsize
-                    for s in plan.sels)
-    assert sel_bytes < 16 * 2**20
-    # the STATE-MAJOR layout does NOT fit at dict1 scale: batch rides
-    # the lane axis, Mosaic pads lanes to 128, so every live plane is
-    # 42 MB at any batch (round-4 fix: the round-3 byte model missed
-    # the lane padding and an on-chip run OOMed; the wide layout is
-    # the dict1 path)
-    assert lex_pallas_batch_chunk(plan, 64) == 0
-    from speech_recognition_tpu.ops.viterbi_lex_pallas import (
-        lex_pallas_lattice_batch_chunk,
-        lex_pallas_wide_batch_chunk,
+def test_dict1_subset_layout_parity(rng):
+    """The state-major production scan + backtrace equal the vmapped
+    [B, S] kernels on a 1,500-word deterministic subset of dict1 (real
+    charset and trie shape), variable lengths."""
+    import jax
+
+    from speech_recognition_jax.ops.viterbi_banded import (
+        banded_backtrace,
+        viterbi_banded,
     )
 
-    wplan = lex_pallas_plan(lexg, layout="wide")
-    assert lex_pallas_wide_batch_chunk(wplan, 64) >= 16
-    assert lex_pallas_lattice_batch_chunk(wplan, 16) >= 8
-    assert lex_pallas_lattice_batch_chunk(plan, 16) == 0
-
-
-@pytest.mark.skipif(not os.path.exists(DICT1), reason="reference dict absent")
-def test_dict1_subset_interpret_parity(rng):
-    """Interpret-mode kernel parity vs the XLA scan on a 1,500-word
-    deterministic subset of dict1 (real charset/trie shape, multiple
-    banded selector blocks), variable lengths, eps_prev value walk."""
     words = load_dict1()[::4][:1500]
     units = sorted(set("".join(words)))
     unit_ids = {ch: i for i, ch in enumerate(units)}
     su = 3
     lexg = build_lex_graph(words, [ltr(su, rng) for _ in units], unit_ids,
                            word_insertion_cost=0.5)
-    plan = lex_pallas_plan(lexg, sel_mode="banded", expand_mode="factored")
-    assert len(plan.topo.sel_blocks) > 8  # multiple staircase blocks
-
     T, B = 8, 8
     e = rng.uniform(0, 5, (T, len(units) * su, B)).astype(np.float32)
     nf = np.array([T, 5, T, 2, 6, T, 1, 7], np.int32)
-    bank_state = np.asarray(lexg.banded.bank_state)
-    nll_tsb = jnp.asarray(e)[:, bank_state, :]
-    fin_x, bp_x, eu_x = viterbi_banded_tb(nll_tsb, lexg.banded,
-                                          jnp.asarray(nf))
-    fin_p, bp_p, eu_p, ep_p = viterbi_lex_pallas(
-        jnp.asarray(e), plan, jnp.asarray(nf), plan.topo, interpret=True,
-        emit_eps_prev=True)
-    live = plan.state_of_soa >= 0
-    fin_p_orig = np.full((lexg.n_states, B), np.nan, np.float32)
-    fin_p_orig[plan.state_of_soa[live]] = np.asarray(fin_p)[live]
-    np.testing.assert_array_equal(fin_p_orig, np.asarray(fin_x))
-
-    ends = np.asarray(lexg.banded.end_states)
-    costs = np.asarray(fin_x)[ends] + np.asarray(
-        lexg.banded.end_bonus)[:, None]
-    best = np.argmin(costs, axis=0)
-    s_x, f_x = banded_backtrace_tb(bp_x, eu_x, lexg.banded,
-                                   jnp.asarray(ends[best]), jnp.asarray(nf))
-    s_p, f_p = lex_backtrace_soa_pallas(
-        bp_p, eu_p, plan, jnp.asarray(np.asarray(plan.ends_soa)[best]),
-        jnp.asarray(nf), plan.topo, interpret=True, eps_prev=ep_p)
-    s_p_orig = plan.state_of_soa[np.asarray(s_p)]
+    g = lexg.banded
+    nll_tsb = jnp.asarray(e)[:, np.asarray(g.bank_state), :]
+    fin_x, bp_x, eu_x = viterbi_banded_tb(nll_tsb, g, jnp.asarray(nf))
+    fin_v, bp_v, eu_v = jax.vmap(lambda x, n: viterbi_banded(x, g, n))(
+        jnp.transpose(nll_tsb, (2, 0, 1)), jnp.asarray(nf))
+    np.testing.assert_array_equal(np.asarray(fin_x), np.asarray(fin_v).T)
+    ends = np.asarray(g.end_states)
+    costs = np.asarray(fin_x)[ends] + np.asarray(g.end_bonus)[:, None]
+    best = ends[np.argmin(costs, axis=0)]
+    s_x, f_x = banded_backtrace_tb(bp_x, eu_x, g, jnp.asarray(best),
+                                   jnp.asarray(nf))
     for i in range(B):
         n = int(nf[i])
-        np.testing.assert_array_equal(s_p_orig[:n, i],
-                                      np.asarray(s_x)[:n, i])
-        np.testing.assert_array_equal(np.asarray(f_p)[:n, i],
-                                      np.asarray(f_x)[:n, i])
+        s_v, f_v = banded_backtrace(bp_v[i], eu_v[i], g, jnp.int32(best[i]),
+                                    jnp.int32(n))
+        np.testing.assert_array_equal(np.asarray(s_x)[:n, i],
+                                      np.asarray(s_v)[:n])
+        np.testing.assert_array_equal(np.asarray(f_x)[:n, i],
+                                      np.asarray(f_v)[:n])
 
 
 @pytest.mark.skipif(not os.path.exists(DICT1), reason="reference dict absent")
 def test_dict1_uniform_lm_reproduces_pass1(rng):
-    """Property test at full dict1 scale (CPU interpret): rescoring the
-    wide-kernel lattice with a FLAT (all-zero) bigram reproduces the
+    """Property test at full dict1 scale: rescoring the pass-1 lattice
+    with a FLAT (all-zero) bigram reproduces the
     plain pass-1 decode — words and costs — so the tau/Q/H algebra is
     sound on the reference's own dictionary
     (``/root/reference/tests/test_data/dict1.txt``)."""
-    from speech_recognition_tpu.langmodel.bigram import uniform_bigram
-    from speech_recognition_tpu.models.lexgraph import lex_words_from_path
-    from speech_recognition_tpu.ops.lattice import (
+    from speech_recognition_jax.langmodel.bigram import uniform_bigram
+    from speech_recognition_jax.models.lexgraph import lex_words_from_path
+    from speech_recognition_jax.ops.lattice import (
         lattice_rescore,
         lattice_words,
-    )
-    from speech_recognition_tpu.ops.viterbi_lex_pallas import (
-        viterbi_lex_pallas_wide_lattice,
+        viterbi_lattice_tb,
     )
 
     words = load_dict1()
@@ -154,14 +104,12 @@ def test_dict1_uniform_lm_reproduces_pass1(rng):
     wic = 0.4
     lexg = build_lex_graph(words, [ltr(su, rng) for _ in units], unit_ids,
                            word_insertion_cost=wic)
-    plan = lex_pallas_plan(lexg, layout="wide")
-    assert plan.topo.lane_major and plan.topo.sel_banded
-
     T, B = 6, 4
     e = rng.uniform(0, 5, (T, len(units) * su, B)).astype(np.float32)
     nf = np.array([T, 3, T, 5], np.int32)
-    ends_p, taus_p = viterbi_lex_pallas_wide_lattice(
-        jnp.asarray(e), plan, jnp.asarray(nf), plan.topo, interpret=True)
+    _, ends_p, taus_p = viterbi_lattice_tb(
+        jnp.asarray(e)[:, np.asarray(lexg.banded.bank_state), :],
+        lexg.banded, jnp.asarray(nf))
 
     lm0 = uniform_bigram(len(words), flat=True)
     res = lattice_rescore(
@@ -170,7 +118,7 @@ def test_dict1_uniform_lm_reproduces_pass1(rng):
         jnp.asarray(lm0.end_cost), jnp.asarray(nf))
     w_resc = lattice_words(res, lexg.leaf_word, nf)
 
-    # pass-1 ground truth on the XLA banded scan
+    # pass-1 ground truth on the banded scan
     g = lexg.banded
     bank_state = np.asarray(g.bank_state)
     nll_tb = jnp.asarray(e)[:, bank_state, :]
@@ -189,18 +137,15 @@ def test_dict1_uniform_lm_reproduces_pass1(rng):
 
 
 @pytest.mark.skipif(not os.path.exists(DICT1), reason="reference dict absent")
-def test_dict1_subset_chunk_seam_parity(rng):
-    """The batch-chunk seam of ``decode_lextree_bigram``
-    (``ops/lattice.py`` pad/concat path: b_pad > b, nf_p=1 filler
-    streams) at real dict1 trie shapes: a 600-word subset with banded
-    staircase selectors, batch 5 forced through bc=2 wide-lattice
-    chunks (2+2+2 with one filler), asserted bit-equal per stream to
-    the unchunked XLA path (round-4 VERDICT weak item 7)."""
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-    from speech_recognition_tpu.langmodel.bigram import fit_bigram
-    from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-    from speech_recognition_tpu.ops.lattice import decode_lextree_bigram
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
+def test_dict1_subset_bigram_batch_independence(rng):
+    """``decode_lextree_bigram`` at real dict1 trie shapes (a 600-word
+    subset): a batch of 5 streams decodes each stream exactly as it
+    decodes alone."""
+    from speech_recognition_jax.data.synthetic import random_gmm_hmm
+    from speech_recognition_jax.langmodel.bigram import fit_bigram
+    from speech_recognition_jax.models.hmm import GMMHMM, HMMBank
+    from speech_recognition_jax.ops.lattice import decode_lextree_bigram
+    from speech_recognition_jax.utils.numerics import to_cost_matrix
 
     words = load_dict1()[::10][:600]
     units = sorted(set("".join(words)))
@@ -219,20 +164,14 @@ def test_dict1_subset_chunk_seam_parity(rng):
     bank = HMMBank.stack(models)
     lexg = build_lex_graph(words, u_trans, unit_ids,
                            word_insertion_cost=0.3)
-    from speech_recognition_tpu.decode.lextree import _lex_plan_cached
-
-    wplan = _lex_plan_cached(lexg, layout="wide")
-    assert wplan is not None and wplan.topo.sel_banded  # dict1-shaped plan
-
     lm = fit_bigram([[int(x) for x in nprng.integers(0, len(words), 7)]
                      for _ in range(40)], len(words))
     b, t = 5, 18
     feats = nprng.standard_normal((b, t, 6)).astype(np.float32)
     nfs = np.array([t, 9, t, 4, 13], np.int32)
-    sx, cx = decode_lextree_bigram(bank, lexg, lm, feats, nfs,
-                                   backend="xla")
-    sc, cc = decode_lextree_bigram(bank, lexg, lm, feats, nfs,
-                                   backend="pallas-wide-interpret",
-                                   batch_chunk=2)
-    assert sx == sc
-    np.testing.assert_allclose(cx, cc, rtol=1e-6)
+    sx, cx = decode_lextree_bigram(bank, lexg, lm, feats, nfs)
+    for i in range(b):
+        si, ci = decode_lextree_bigram(bank, lexg, lm, feats[i:i + 1],
+                                       nfs[i:i + 1])
+        assert si[0] == sx[i]
+        np.testing.assert_allclose(ci[0], cx[i], rtol=1e-6)

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.ops.forward_backward import forward_backward
-from speech_recognition_tpu.utils.numerics import POS_INF, to_cost_matrix
+from speech_recognition_jax.ops.forward_backward import forward_backward
+from speech_recognition_jax.utils.numerics import POS_INF, to_cost_matrix
 
 
 def brute_force(nll, trans_cost, init_cost, end_scores):
@@ -157,8 +157,8 @@ def test_fb_with_epsilon_matches_brute_force(rng):
 def test_band_xi_matches_dense(rng):
     """xi_mode="band" equals the band diagonals of the dense xi on a
     composed (banded) word graph."""
-    from speech_recognition_tpu.models.graph import build_word_graph
-    from speech_recognition_tpu.ops.viterbi_banded import MAX_BAND
+    from speech_recognition_jax.models.graph import build_word_graph
+    from speech_recognition_jax.ops.viterbi_banded import MAX_BAND
 
     def ltr(S):
         t = np.full((S, S), np.inf)
@@ -199,10 +199,10 @@ def test_band_xi_matches_dense(rng):
 
 
 def _dense_vs_banded(g, bg, nll, nf, end_scores=None, atol=1e-5):
-    from speech_recognition_tpu.ops.forward_backward import (
+    from speech_recognition_jax.ops.forward_backward import (
         forward_backward_banded,
     )
-    from speech_recognition_tpu.ops.viterbi_banded import MAX_BAND
+    from speech_recognition_jax.ops.viterbi_banded import MAX_BAND
 
     eps_depth = getattr(g, "eps_depth", 1)
     kw = {}
@@ -243,11 +243,11 @@ def test_banded_fb_matches_dense_word_graphs(rng):
     """O(3S)/frame banded FB == dense O(S^2) FB on sausage / linear /
     loop graphs (round-2 VERDICT weak item 5: soft stats on composed
     graphs without the dense matrix)."""
-    from speech_recognition_tpu.models.graph import (
+    from speech_recognition_jax.models.graph import (
         build_loop_graph,
         build_word_graph,
     )
-    from speech_recognition_tpu.ops.viterbi_banded import banded_arrays
+    from speech_recognition_jax.ops.viterbi_banded import banded_arrays
 
     def ltr(S):
         t = np.full((S, S), np.inf)
@@ -278,7 +278,7 @@ def test_banded_fb_matches_dense_lexgraph(rng):
     """Cross-arc (lexical-tree) graphs: the banded FB's static-origin
     cross edges + segment-lse reversal equal the dense pass — the case
     the dense-matrix FB forecloses at scale."""
-    from speech_recognition_tpu.models.lexgraph import build_lex_graph
+    from speech_recognition_jax.models.lexgraph import build_lex_graph
     from tests.test_lextree_decode import lex_to_dense, ltr, unit_emissions
 
     words = ["ab", "abc", "ad", "b", "ba"]

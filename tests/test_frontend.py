@@ -9,14 +9,16 @@ MFCC-parity gate.
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.config import FrontendConfig
-from speech_recognition_tpu.ops.frontend import (
+from speech_recognition_jax.config import FrontendConfig
+from speech_recognition_jax.ops.frontend import (
     mfcc,
     mfcc39,
+    mfcc39_batch,
     max_frames,
     padded_length,
 )
 from tests.oracles.frontend_ref import (
+    delta_feature_oracle,
     load_wav_as_mfcc_oracle,
     mfcc_psf_oracle,
     mfcc_scratch_oracle,
@@ -144,3 +146,69 @@ def test_float32_precision_bounded(rng):
     np.testing.assert_allclose(
         np.asarray(feats)[: ref.shape[0]], ref, rtol=0, atol=5e-2
     )
+
+
+def _batch(rng, lens, cap, dtype):
+    sigs = np.zeros((len(lens), padded_length(PSF, cap)), dtype)
+    raw = []
+    for i, n in enumerate(lens):
+        raw.append(synth_signal(rng, n))
+        sigs[i, :n] = raw[-1]
+    return sigs, np.asarray(lens, np.int32), raw
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float64, 1e-8),
+                                        (np.float32, 5e-2)])
+def test_batch_varlen_matches_oracle(rng, dtype, atol):
+    """The production batched frontend on variable-length utterances vs
+    the float64 oracle, per utterance; frames past each length are
+    exact zeros.  float32 is held to the f32 bound above."""
+    lens = [16000, 7321, 7000, 12345, 9000]
+    sigs, lengths, raw = _batch(rng, lens, 16000, dtype)
+    feats, nf = mfcc39_batch(sigs, lengths, PSF)
+    feats = np.asarray(feats)
+    for i, s in enumerate(raw):
+        ref = load_wav_as_mfcc_oracle(s)
+        assert int(nf[i]) == ref.shape[0]
+        np.testing.assert_allclose(feats[i, : ref.shape[0]], ref,
+                                   rtol=atol, atol=atol)
+        assert np.all(feats[i, ref.shape[0]:] == 0.0)
+
+
+def test_batch_single_short_frame(rng):
+    """length <= frame_len -> exactly one frame (psf framing rule); the
+    raw cepstra match the oracle (the reference's delta cannot run on a
+    1-frame utterance, so the 39-dim oracle does not apply)."""
+    sigs, lengths, raw = _batch(rng, [300], 16000, np.float64)
+    feats, nf = mfcc39_batch(sigs, lengths, PSF, norm="none")
+    assert int(nf[0]) == 1
+    np.testing.assert_allclose(np.asarray(feats)[0, :1, :13],
+                               mfcc_psf_oracle(raw[0]), rtol=1e-8, atol=1e-8)
+
+
+def test_batch_norm_none_raw_deltas(rng):
+    """norm='none' returns raw [ceps | delta | delta-delta] (for corpus
+    CMVN), each block equal to the oracle's."""
+    sigs, lengths, raw = _batch(rng, [8000, 6000], 8000, np.float64)
+    feats, nf = mfcc39_batch(sigs, lengths, PSF, norm="none")
+    for i, s in enumerate(raw):
+        c = mfcc_psf_oracle(s)
+        d1 = delta_feature_oracle(c)
+        d2 = delta_feature_oracle(d1)
+        n = int(nf[i])
+        assert n == c.shape[0]
+        f = np.asarray(feats)[i, :n]
+        for got, want in ((f[:, :13], c), (f[:, 13:26], d1), (f[:, 26:], d2)):
+            np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-8)
+
+
+def test_batch_equals_per_utterance(rng):
+    """mfcc39_batch is mfcc39 applied per row (batched GEMMs may
+    reduce in another order: float32 rounding apart)."""
+    sigs, lengths, _ = _batch(rng, [8000, 5321, 4000], 8000, np.float32)
+    fb, nb = mfcc39_batch(sigs, lengths, PSF)
+    for i in range(len(lengths)):
+        f1, n1 = mfcc39(sigs[i], lengths[i], PSF)
+        assert int(nb[i]) == int(n1)
+        np.testing.assert_allclose(np.asarray(fb)[i], np.asarray(f1),
+                                   rtol=1e-4, atol=1e-4)

@@ -4,13 +4,13 @@ LM-weighted loop-graph decoder."""
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.langmodel.bigram import (
+from speech_recognition_jax.langmodel.bigram import (
     fit_bigram,
     sequence_cost,
     uniform_bigram,
 )
-from speech_recognition_tpu.langmodel.lextree import lextree_from_words
-from speech_recognition_tpu.langmodel.spellcheck import SpellChecker, text_viterbi
+from speech_recognition_jax.langmodel.lextree import lextree_from_words
+from speech_recognition_jax.langmodel.spellcheck import SpellChecker, text_viterbi
 from tests.oracles.text_ref import text_viterbi_oracle
 
 WORDS = ["cat", "car", "card", "care", "dog", "do", "door", "a", "an", "and"]
@@ -83,11 +83,11 @@ def test_loop_graph_decodes_repeated_words(rng):
     """A loop graph must separate '9 9' — requires epsilon-hop flags."""
     import jax.numpy as jnp
 
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-    from speech_recognition_tpu.models.graph import build_loop_graph
-    from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-    from speech_recognition_tpu.decode.connected import decode_connected
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
+    from speech_recognition_jax.data.synthetic import random_gmm_hmm
+    from speech_recognition_jax.models.graph import build_loop_graph
+    from speech_recognition_jax.models.hmm import GMMHMM, HMMBank
+    from speech_recognition_jax.decode.connected import decode_connected
+    from speech_recognition_jax.utils.numerics import to_cost_matrix
 
     n_words, S, M, D = 3, 3, 1, 6
     params = [random_gmm_hmm(rng, n_states=S, n_mix=M, dim=D, sep=6.0) for _ in range(n_words)]
@@ -127,12 +127,12 @@ def test_loop_graph_bigram_biases_decode(rng):
     """With ambiguous acoustics, the bigram LM should tip the decision."""
     import jax.numpy as jnp
 
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-    from speech_recognition_tpu.langmodel.bigram import BigramLM
-    from speech_recognition_tpu.models.graph import build_loop_graph
-    from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-    from speech_recognition_tpu.decode.connected import decode_connected
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
+    from speech_recognition_jax.data.synthetic import random_gmm_hmm
+    from speech_recognition_jax.langmodel.bigram import BigramLM
+    from speech_recognition_jax.models.graph import build_loop_graph
+    from speech_recognition_jax.models.hmm import GMMHMM, HMMBank
+    from speech_recognition_jax.decode.connected import decode_connected
+    from speech_recognition_jax.utils.numerics import to_cost_matrix
 
     S, M, D = 3, 1, 6
     base = random_gmm_hmm(rng, n_states=S, n_mix=M, dim=D, sep=5.0)
@@ -178,14 +178,14 @@ def test_bigram_helps_on_noisy_markov_corpus():
     """End-to-end LM benefit: structured transcripts + noisy audio."""
     import jax
 
-    from speech_recognition_tpu.config import FrontendConfig, HMMConfig
-    from speech_recognition_tpu.data.synthetic import SyntheticDigits
-    from speech_recognition_tpu.decode.connected import decode_connected
-    from speech_recognition_tpu.models.graph import build_loop_graph
-    from speech_recognition_tpu.models.hmm import HMMBank
-    from speech_recognition_tpu.ops.frontend import mfcc39, padded_length
-    from speech_recognition_tpu.train.isolated import fit_hmm
-    from speech_recognition_tpu.utils.metrics import wer
+    from speech_recognition_jax.config import FrontendConfig, HMMConfig
+    from speech_recognition_jax.data.synthetic import SyntheticDigits
+    from speech_recognition_jax.decode.connected import decode_connected
+    from speech_recognition_jax.models.graph import build_loop_graph
+    from speech_recognition_jax.models.hmm import HMMBank
+    from speech_recognition_jax.ops.frontend import mfcc39, padded_length
+    from speech_recognition_jax.train.isolated import fit_hmm
+    from speech_recognition_jax.utils.metrics import wer
 
     cfg = FrontendConfig()
     gen = SyntheticDigits(seed=5, noise=1.2)
@@ -210,7 +210,7 @@ def test_bigram_helps_on_noisy_markov_corpus():
 
     lm_train = gen.continuous_corpus(150, tag="lmtr", markov=0.85)
     lm = fit_bigram([u.labels for u in lm_train], 11, add_k=0.2)
-    from speech_recognition_tpu.langmodel.bigram import BigramLM
+    from speech_recognition_jax.langmodel.bigram import BigramLM
 
     lm4 = BigramLM(cost=lm.cost * 4, start_cost=lm.start_cost * 4,
                    end_cost=lm.end_cost * 4)

@@ -19,20 +19,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.langmodel.bigram import BigramLM, fit_bigram
-from speech_recognition_tpu.models.graph import build_loop_graph
-from speech_recognition_tpu.models.lexgraph import (
+from speech_recognition_jax.langmodel.bigram import BigramLM, fit_bigram
+from speech_recognition_jax.models.graph import build_loop_graph
+from speech_recognition_jax.models.lexgraph import (
     build_lex_graph,
     lex_words_from_path,
 )
-from speech_recognition_tpu.ops.viterbi import viterbi, viterbi_backtrace
-from speech_recognition_tpu.ops.viterbi_banded import (
+from speech_recognition_jax.ops.viterbi import viterbi, viterbi_backtrace
+from speech_recognition_jax.ops.viterbi_banded import (
     MAX_BAND,
     banded_arrays,
     banded_backtrace,
     viterbi_banded,
 )
-from speech_recognition_tpu.utils.numerics import POS_INF
+from speech_recognition_jax.utils.numerics import POS_INF
 
 
 def ltr(S, rng, skip=True):
@@ -179,7 +179,7 @@ def test_flat_vocab_is_the_loop_graph(rng):
                               jnp.int32(T))
     np.testing.assert_array_equal(np.asarray(s1), np.asarray(s2))
 
-    from speech_recognition_tpu.decode.connected import states_to_words
+    from speech_recognition_jax.decode.connected import states_to_words
 
     w_loop = states_to_words(gl, np.asarray(s2), T, np.asarray(f2))
     w_lex = lex_words_from_path(lexg, np.asarray(s1), T, np.asarray(f1))
@@ -244,7 +244,7 @@ def test_deep_tree_matches_concatenated_loop(rng, use_unigram):
                                   jnp.int32(ends_lex[bl]), jnp.int32(nf))
         s2, f2 = banded_backtrace(bp_loop, eu_loop, bgl,
                                   jnp.int32(ends_loop[bgi]), jnp.int32(nf))
-        from speech_recognition_tpu.decode.connected import states_to_words
+        from speech_recognition_jax.decode.connected import states_to_words
 
         w_lex = lex_words_from_path(lexg, np.asarray(s1), nf, np.asarray(f1))
         w_loop = states_to_words(gl, np.asarray(s2), nf, np.asarray(f2))
@@ -313,10 +313,10 @@ def test_thousand_word_vocabulary(rng):
 def test_decode_lextree_api(rng):
     """The public decode path (unit-bank emissions + batched kernel +
     word recovery), with and without a beam."""
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-    from speech_recognition_tpu.decode.lextree import decode_lextree
-    from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
+    from speech_recognition_jax.data.synthetic import random_gmm_hmm
+    from speech_recognition_jax.decode.lextree import decode_lextree
+    from speech_recognition_jax.models.hmm import GMMHMM, HMMBank
+    from speech_recognition_jax.utils.numerics import to_cost_matrix
 
     units = list("abcd")
     unit_ids = {ch: i for i, ch in enumerate(units)}

@@ -2,8 +2,8 @@
 row): a real multi-process run — TCP coordinator, gloo CPU collectives,
 2 processes x 2 virtual devices — executes one sharded embedded-training
 step and must match the single-process result.  This is the same
-``jax.distributed.initialize`` + GSPMD path multi-host TPU uses; only
-the transport differs (gloo here, ICI/DCN there)."""
+``jax.distributed.initialize`` + GSPMD path a multi-host GPU run uses;
+only the transport differs (gloo here, NCCL there)."""
 
 import pathlib
 import socket
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 
 from embedded_case import make_embedded_case
-from speech_recognition_tpu.train.embedded_step import embedded_step
+from speech_recognition_jax.train.embedded_step import embedded_step
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

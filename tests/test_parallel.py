@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.data.synthetic import random_gmm_hmm, sample_hmm_features
-from speech_recognition_tpu.models.graph import build_word_graph, pad_graphs
-from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-from speech_recognition_tpu.train.embedded_step import embedded_step
-from speech_recognition_tpu.utils.numerics import to_cost_matrix
+from speech_recognition_jax.data.synthetic import random_gmm_hmm, sample_hmm_features
+from speech_recognition_jax.models.graph import build_word_graph, pad_graphs
+from speech_recognition_jax.models.hmm import GMMHMM, HMMBank
+from speech_recognition_jax.train.embedded_step import embedded_step
+from speech_recognition_jax.utils.numerics import to_cost_matrix
 
 
 def _bank_from_params(params):
@@ -41,10 +41,10 @@ def embedded_fixture():
 def test_embedded_step_converges_and_decodes(embedded_fixture):
     """Viterbi-EM: total alignment cost decreases monotonically to a fixed
     point, and the trained bank decodes the training word sequences."""
-    from speech_recognition_tpu.decode.connected import (
+    from speech_recognition_jax.decode.connected import (
         decode_connected,
     )
-    from speech_recognition_tpu.models.graph import build_loop_graph
+    from speech_recognition_jax.models.graph import build_loop_graph
 
     bank, feats, n_frames, gdev, eps_depth, true_params, labels = embedded_fixture
     costs = []
@@ -65,8 +65,8 @@ def test_embedded_step_converges_and_decodes(embedded_fixture):
 
 
 def test_sharded_step_matches_single_device(embedded_fixture):
-    from speech_recognition_tpu.parallel.mesh import make_mesh
-    from speech_recognition_tpu.parallel.trainer import (
+    from speech_recognition_jax.parallel.mesh import make_mesh
+    from speech_recognition_jax.parallel.trainer import (
         make_sharded_embedded_step,
         shard_embedded_inputs,
     )
@@ -113,8 +113,8 @@ def test_entry_compiles():
 
 def test_soft_embedded_step_converges(embedded_fixture):
     """True Baum-Welch (sum-product) variant: NLL decreases, decode holds."""
-    from speech_recognition_tpu.models.graph import build_word_graph, pad_graphs
-    from speech_recognition_tpu.train.embedded_step import embedded_step_soft
+    from speech_recognition_jax.models.graph import build_word_graph, pad_graphs
+    from speech_recognition_jax.train.embedded_step import embedded_step_soft
 
     bank, feats, n_frames, _, _, _, labels = embedded_fixture
     trans_np = [np.asarray(bank.trans_cost[i]) for i in range(bank.n_models)]
@@ -140,8 +140,8 @@ def test_soft_embedded_step_converges(embedded_fixture):
 def test_frame_chunked_stats_match_single_chunk(embedded_fixture):
     """frame_chunk streaming accumulation == the monolithic GEMM, for
     both the hard and the soft step (same stats up to fp association)."""
-    from speech_recognition_tpu.train.embedded_step import embedded_step_soft
-    from speech_recognition_tpu.models.graph import pad_graphs
+    from speech_recognition_jax.train.embedded_step import embedded_step_soft
+    from speech_recognition_jax.models.graph import pad_graphs
 
     bank, feats, n_frames, gdev, eps_depth, _, labels = embedded_fixture
     big, _ = embedded_step(bank, jnp.asarray(feats), jnp.asarray(n_frames),
@@ -157,7 +157,7 @@ def test_frame_chunked_stats_match_single_chunk(embedded_fixture):
     from embedded_case import make_embedded_case
     bank2, feats2, nf2, graph_np, eps_d2, _ = make_embedded_case(seed=9, B=6)
     import numpy as _np
-    from speech_recognition_tpu.models.graph import build_word_graph
+    from speech_recognition_jax.models.graph import build_word_graph
     # rebuild with end_scores included
     trans_np = [_np.asarray(bank2.trans_cost[i]) for i in range(bank2.n_models)]
     # reuse the padded batch from pad_graphs directly
@@ -179,12 +179,12 @@ def test_soft_step_banded_matches_dense(embedded_fixture):
     """embedded_step_soft with the banded graph batch
     (pad_graphs_banded -> O(3S)/frame FB) == the dense [S, S] batch:
     same bank update and same total NLL."""
-    from speech_recognition_tpu.models.graph import (
+    from speech_recognition_jax.models.graph import (
         build_word_graph,
         pad_graphs,
         pad_graphs_banded,
     )
-    from speech_recognition_tpu.train.embedded_step import embedded_step_soft
+    from speech_recognition_jax.train.embedded_step import embedded_step_soft
 
     bank, feats, n_frames, _, _, _, labels = embedded_fixture
     trans_np = [np.asarray(bank.trans_cost[i]) for i in range(bank.n_models)]
@@ -214,7 +214,7 @@ def test_pad_graphs_auto_selection():
     """pad_graphs_auto picks the dense dict for transcript-scale graphs
     (the round-3 soft-EM regression: banded FB machinery loses 4x at
     S ~ 30) and the banded dict past BANDED_FB_MIN_STATES."""
-    from speech_recognition_tpu.models.graph import (
+    from speech_recognition_jax.models.graph import (
         BANDED_FB_MIN_STATES,
         build_word_graph,
         pad_graphs_auto,

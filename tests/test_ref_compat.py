@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from speech_recognition_tpu.config import HMMConfig
-from speech_recognition_tpu.train.isolated import align_states, fit_gmm_state
-from speech_recognition_tpu.train.kmeans import kmeans
+from speech_recognition_jax.config import HMMConfig
+from speech_recognition_jax.train.isolated import align_states, fit_gmm_state
+from speech_recognition_jax.train.kmeans import kmeans
 
 
 def test_ref_compat_split_count():
@@ -64,9 +64,9 @@ def test_kmeans_shared_cov_quirk(rng):
 
 
 def test_align_states_monotone(rng):
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-    from speech_recognition_tpu.models.hmm import GMMHMM
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
+    from speech_recognition_jax.data.synthetic import random_gmm_hmm
+    from speech_recognition_jax.models.hmm import GMMHMM
+    from speech_recognition_jax.utils.numerics import to_cost_matrix
 
     p = random_gmm_hmm(rng, n_states=4, n_mix=1, dim=5, sep=5.0)
     model = GMMHMM(
@@ -75,7 +75,7 @@ def test_align_states_monotone(rng):
         log_weights=jnp.log(jnp.asarray(p["weights"], jnp.float32)),
         trans_cost=jnp.asarray(to_cost_matrix(p["trans"])),
     )
-    from speech_recognition_tpu.data.synthetic import sample_hmm_features
+    from speech_recognition_jax.data.synthetic import sample_hmm_features
 
     feats, true_states = sample_hmm_features(p, rng, min_frames_per_state=3)
     fb = feats[None].astype(np.float32)

@@ -1,34 +1,41 @@
 """Parity against the ACTUAL reference implementation (not the oracles):
 the unmodified code at /root/reference runs in-process via tests/ref_shim
-and its outputs are compared with this framework's kernels."""
+and its outputs are compared with this framework's kernels.  Every test
+skips where the reference is not installed."""
 
 import numpy as np
 import pytest
 
 from tests.ref_shim import load_reference
 
-ref = load_reference()
+
+@pytest.fixture(scope="module")
+def ref():
+    try:
+        return load_reference()
+    except ImportError as e:
+        pytest.skip(f"reference implementation not importable ({e})")
 
 
-def _ref_gmm(means, variances, weights):
+def _ref_gmm(ref, means, variances, weights):
     """Build a reference GMM state object with given parameters."""
     g = ref.hmm_state.GMM(means[0], variances[0], means.shape[0])
     g.update_models(np.asarray(means), np.asarray(variances), np.asarray(weights))
     return g
 
 
-def test_reference_gmm_evaluate_matches_our_emission(rng):
+def test_reference_gmm_evaluate_matches_our_emission(ref, rng):
     """Reference linear-space GMM.evaluate == our logsumexp emission."""
     import jax.numpy as jnp
 
-    from speech_recognition_tpu.ops.gmm import gmm_emission_weights, gmm_neg_log_lik
+    from speech_recognition_jax.ops.gmm import gmm_emission_weights, gmm_neg_log_lik
 
     m, d = 3, 6
     means = rng.normal(0, 1, (m, d))
     variances = rng.uniform(0.5, 2.0, (m, d))
     weights = rng.uniform(0.2, 1.0, m)
     weights /= weights.sum()
-    g = _ref_gmm(means, variances, weights)
+    g = _ref_gmm(ref, means, variances, weights)
 
     x = rng.normal(0, 1, (10, d))
     ref_nll = np.array([g.evaluate(x[i]) for i in range(10)])
@@ -41,13 +48,13 @@ def test_reference_gmm_evaluate_matches_our_emission(rng):
     np.testing.assert_allclose(ours, ref_nll, rtol=1e-5)
 
 
-def test_reference_decode_hmm_states_matches_viterbi(rng):
+def test_reference_decode_hmm_states_matches_viterbi(ref, rng):
     """Full NES-graph decode: the reference's Python DP vs our
     epsilon-closed scan kernel, on identical GMM states."""
     import jax.numpy as jnp
 
-    from speech_recognition_tpu.models.graph import build_word_graph
-    from speech_recognition_tpu.ops.viterbi import viterbi, viterbi_backtrace
+    from speech_recognition_jax.models.graph import build_word_graph
+    from speech_recognition_jax.ops.viterbi import viterbi, viterbi_backtrace
 
     n_words, s, m, d = 2, 3, 2, 4
     word_params = []
@@ -69,7 +76,7 @@ def test_reference_decode_hmm_states_matches_viterbi(rng):
         h = ref.hmm.HMM(s)
         h.use_gmm = True
         h.gmm_states = [
-            _ref_gmm(means[i], variances[i], weights[i]) for i in range(s)
+            _ref_gmm(ref, means[i], variances[i], weights[i]) for i in range(s)
         ]
         h.transitions = trans
         ref_models.append(h)
@@ -87,8 +94,8 @@ def test_reference_decode_hmm_states_matches_viterbi(rng):
     best_ref = min(costs_ref[e, -1] for e in end_pts)
 
     # our side: same parameters through the epsilon-closed graph
-    from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank, bank_nll
-    from speech_recognition_tpu.utils.numerics import to_cost_matrix
+    from speech_recognition_jax.models.hmm import GMMHMM, HMMBank, bank_nll
+    from speech_recognition_jax.utils.numerics import to_cost_matrix
 
     bank = HMMBank.stack([
         GMMHMM(
@@ -112,7 +119,7 @@ def test_reference_decode_hmm_states_matches_viterbi(rng):
     states, flags = viterbi_backtrace(
         res.bp, res.eps_bp, np.int32(end_state), np.int32(t_len), eps_depth=g.eps_depth
     )
-    from speech_recognition_tpu.decode.connected import states_to_words
+    from speech_recognition_jax.decode.connected import states_to_words
 
     ours_words = states_to_words(g, np.asarray(states), t_len, np.asarray(flags))
 
@@ -141,16 +148,16 @@ def test_reference_decode_hmm_states_matches_viterbi(rng):
     assert ours_words == ref_words
 
 
-def test_reference_training_agreement(rng):
+def test_reference_training_agreement(ref, rng):
     """Train the reference HMM.fit and our fit_hmm on the same templates;
     both classifiers must make the same decisions on held-out data."""
     import jax
 
-    from speech_recognition_tpu.data.synthetic import random_gmm_hmm, sample_hmm_features
-    from speech_recognition_tpu.config import HMMConfig, TrainConfig
-    from speech_recognition_tpu.decode.isolated import classify_batch
-    from speech_recognition_tpu.models.hmm import HMMBank
-    from speech_recognition_tpu.train.isolated import fit_hmm
+    from speech_recognition_jax.data.synthetic import random_gmm_hmm, sample_hmm_features
+    from speech_recognition_jax.config import HMMConfig, TrainConfig
+    from speech_recognition_jax.decode.isolated import classify_batch
+    from speech_recognition_jax.models.hmm import HMMBank
+    from speech_recognition_jax.train.isolated import fit_hmm
 
     import jax.numpy as jnp
 
@@ -210,7 +217,7 @@ def test_reference_training_agreement(rng):
     assert agreement >= 0.85, (ref_preds, our_preds)
 
 
-def test_reference_skmeans_agreement(rng):
+def test_reference_skmeans_agreement(ref, rng):
     """Segmental K-means vs the real reference skmeans on identical
     templates.  With update_seg_lens=False (the reference freezes its
     transition costs at the uniform initial cut) both are deterministic
@@ -227,7 +234,7 @@ def test_reference_skmeans_agreement(rng):
 
     ref_means, ref_vars, ref_trans = ref.kmeans.skmeans(temps, s)
 
-    from speech_recognition_tpu.train.skmeans import skmeans
+    from speech_recognition_jax.train.skmeans import skmeans
 
     means, variances, trans, states, _ = skmeans(
         [t.copy() for t in temps], s, update_seg_lens=False
@@ -239,15 +246,15 @@ def test_reference_skmeans_agreement(rng):
     assert np.array_equal(np.isfinite(trans), finite)
 
 
-def test_reference_text_viterbi_agreement():
+def test_reference_text_viterbi_agreement(ref):
     """Text Viterbi cost vs the real reference spellchecker on a word
     list where the reference's words.remove iteration bug cannot trigger
     (no two words share an end position within a recursion group)."""
     import sr.langmodel.lextree as ref_lextree
     import sr.langmodel.spellchecker as ref_spell
 
-    from speech_recognition_tpu.langmodel.lextree import lextree_from_words
-    from speech_recognition_tpu.langmodel.spellcheck import text_viterbi
+    from speech_recognition_jax.langmodel.lextree import lextree_from_words
+    from speech_recognition_jax.langmodel.spellcheck import text_viterbi
 
     words = ["cat", "care", "do", "door", "apple"]
     for text in ["cat", "cta", "doorr", "aple", "zzz", "caredo"]:

@@ -6,9 +6,9 @@ import time
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.data.synthetic import SyntheticDigits
-from speech_recognition_tpu.data.wav import write_wav
-from speech_recognition_tpu.runtime.loader import load_wav_batch, native_available
+from speech_recognition_jax.data.synthetic import SyntheticDigits
+from speech_recognition_jax.data.wav import write_wav
+from speech_recognition_jax.runtime.loader import load_wav_batch, native_available
 
 
 @pytest.fixture(scope="module")
@@ -67,8 +67,8 @@ def test_multithreaded_same_result(wav_dir):
 def test_prefetch_batches_match_single_batch(tmp_path):
     """PrefetchWavBatches (lookahead thread) == one monolithic
     load_wav_batch, chunk for chunk."""
-    from speech_recognition_tpu.data.wav import write_wav
-    from speech_recognition_tpu.runtime.loader import PrefetchWavBatches
+    from speech_recognition_jax.data.wav import write_wav
+    from speech_recognition_jax.runtime.loader import PrefetchWavBatches
 
     rng = np.random.default_rng(4)
     paths = []
@@ -96,10 +96,10 @@ def test_prefetch_batches_match_single_batch(tmp_path):
 def test_cli_featurize_prefetch_chunks_match_monolithic(tmp_path):
     """_featurize_files through the prefetching chunked pipeline ==
     the single-batch path (features and lengths identical)."""
-    from speech_recognition_tpu.cli import _featurize_files
-    from speech_recognition_tpu.config import FrontendConfig
-    from speech_recognition_tpu.data.synthetic import SyntheticDigits
-    from speech_recognition_tpu.data.wav import write_wav
+    from speech_recognition_jax.cli import _featurize_files
+    from speech_recognition_jax.config import FrontendConfig
+    from speech_recognition_jax.data.synthetic import SyntheticDigits
+    from speech_recognition_jax.data.wav import write_wav
 
     gen = SyntheticDigits(seed=6)
     paths = []

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.models.graph import build_loop_graph, build_word_graph
-from speech_recognition_tpu.ops.viterbi_banded import (
+from speech_recognition_jax.models.graph import build_loop_graph, build_word_graph
+from speech_recognition_jax.ops.viterbi_banded import (
     banded_arrays,
     banded_backtrace,
     viterbi_banded,
 )
-from speech_recognition_tpu.parallel.mesh import make_mesh
-from speech_recognition_tpu.parallel.sharded_decode import (
+from speech_recognition_jax.parallel.mesh import make_mesh
+from speech_recognition_jax.parallel.sharded_decode import (
     make_sharded_banded_viterbi,
     pad_banded_for_sharding,
 )
@@ -75,7 +75,7 @@ def test_sharded_lexgraph_matches_single_device(rng):
     all_gathers the frontier for the parent-end gather; output must
     stay bit-identical to the single-device kernel, including the
     _CROSS backpointer codes and the eps side plane."""
-    from speech_recognition_tpu.models.lexgraph import build_lex_graph
+    from speech_recognition_jax.models.lexgraph import build_lex_graph
 
     words = ["aa", "ab", "abb", "ba", "b", "cab", "ca", "c"]
     units = sorted(set("".join(words)))

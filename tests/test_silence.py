@@ -6,19 +6,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.config import FrontendConfig, HMMConfig, TrainConfig
-from speech_recognition_tpu.data.endpoint import endpoint_signal
-from speech_recognition_tpu.data.synthetic import SyntheticDigits
-from speech_recognition_tpu.decode.connected import decode_connected
-from speech_recognition_tpu.models.graph import build_loop_graph
-from speech_recognition_tpu.models.hmm import HMMBank
-from speech_recognition_tpu.ops.frontend import apply_cmvn, cmvn_stats, mfcc39, padded_length
-from speech_recognition_tpu.train.isolated import fit_hmm
-from speech_recognition_tpu.train.silence import (
+from speech_recognition_jax.config import FrontendConfig, HMMConfig, TrainConfig
+from speech_recognition_jax.data.endpoint import endpoint_signal
+from speech_recognition_jax.data.synthetic import SyntheticDigits
+from speech_recognition_jax.decode.connected import decode_connected
+from speech_recognition_jax.models.graph import build_loop_graph
+from speech_recognition_jax.models.hmm import HMMBank
+from speech_recognition_jax.ops.frontend import apply_cmvn, cmvn_stats, mfcc39, padded_length
+from speech_recognition_jax.train.isolated import fit_hmm
+from speech_recognition_jax.train.silence import (
     fit_silence_hmm,
     harvest_silence_samples,
 )
-from speech_recognition_tpu.utils.metrics import wer
+from speech_recognition_jax.utils.metrics import wer
 
 
 def test_silence_model_recovers_endpoint_mismatch():

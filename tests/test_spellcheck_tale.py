@@ -16,8 +16,8 @@ workload runs with asserts:
   O(N^2) blowup, and ``SpellChecker.spell_check`` emits only complete
   dictionary words.
 
-Device chars/s at the full-tale scale is recorded by
-``bench.py --what spellcheck`` (RESULTS.md).
+Device chars/s at the full-tale scale is measured by
+``bench.py --what spellcheck`` on the GPU.
 """
 
 import os
@@ -27,8 +27,8 @@ import time
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.langmodel.lextree import lextree_from_words
-from speech_recognition_tpu.langmodel.spellcheck import SpellChecker, text_viterbi
+from speech_recognition_jax.langmodel.lextree import lextree_from_words
+from speech_recognition_jax.langmodel.spellcheck import SpellChecker, text_viterbi
 
 DICT1 = "/root/reference/tests/test_data/dict1.txt"
 TALE_SRC = "/root/reference/tests/lextree_tests.py"
@@ -118,7 +118,7 @@ def test_batched_level_kernel_matches_per_string(dict1_words):
     """text_viterbi_batch (depth-level sweep, [N, B] lanes) == the
     per-string reference DP on dict1-scale tries: equal costs, and all
     corrected words are dictionary words."""
-    from speech_recognition_tpu.langmodel.spellcheck import (
+    from speech_recognition_jax.langmodel.spellcheck import (
         SpellChecker,
         text_viterbi,
         text_viterbi_batch,
@@ -138,7 +138,7 @@ def test_batched_level_kernel_small_dict_random(dict1_words):
     """Randomized small-dict parity: costs AND strings (no ties in
     random float-free integer costs is not guaranteed, so strings are
     compared only when costs are unique-path — here: assert costs)."""
-    from speech_recognition_tpu.langmodel.spellcheck import (
+    from speech_recognition_jax.langmodel.spellcheck import (
         text_viterbi,
         text_viterbi_batch,
     )

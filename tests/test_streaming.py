@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.data.synthetic import random_gmm_hmm
-from speech_recognition_tpu.decode.connected import decode_connected
-from speech_recognition_tpu.decode.streaming import StreamingDecoder
-from speech_recognition_tpu.models.graph import build_loop_graph
-from speech_recognition_tpu.models.hmm import GMMHMM, HMMBank
-from speech_recognition_tpu.utils.numerics import to_cost_matrix
+from speech_recognition_jax.data.synthetic import random_gmm_hmm
+from speech_recognition_jax.decode.connected import decode_connected
+from speech_recognition_jax.decode.streaming import StreamingDecoder
+from speech_recognition_jax.models.graph import build_loop_graph
+from speech_recognition_jax.models.hmm import GMMHMM, HMMBank
+from speech_recognition_jax.utils.numerics import to_cost_matrix
 
 
 @pytest.fixture(scope="module")
@@ -68,8 +68,8 @@ def test_streaming_matches_monolithic(setup, chunk):
 def test_streaming_lexgraph_matches_monolithic(rng):
     """StreamingDecoder over a lexical tree (cross-arc graph) must be
     bit-identical to the monolithic decode_lextree."""
-    from speech_recognition_tpu.decode.lextree import decode_lextree
-    from speech_recognition_tpu.models.lexgraph import build_lex_graph
+    from speech_recognition_jax.decode.lextree import decode_lextree
+    from speech_recognition_jax.models.lexgraph import build_lex_graph
 
     units = list("abcd")
     unit_ids = {ch: i for i, ch in enumerate(units)}
@@ -238,7 +238,7 @@ def test_incremental_emission_batched(setup, rng):
 
 def _lex_stream_case(nprng, words, dwell=3, n_say=24):
     """Unit bank + trie + planted audio for lexgraph streaming tests."""
-    from speech_recognition_tpu.models.lexgraph import build_lex_graph
+    from speech_recognition_jax.models.lexgraph import build_lex_graph
 
     units = sorted(set("".join(words)))
     unit_ids = {ch: i for i, ch in enumerate(units)}
@@ -273,7 +273,7 @@ def test_incremental_emission_lexgraph():
     emitted mid-stream + the finish() residual == the monolithic
     decode_lextree, with the plane buffer bounded (round-3 VERDICT
     missing item 2 — this was a NotImplementedError)."""
-    from speech_recognition_tpu.decode.lextree import decode_lextree
+    from speech_recognition_jax.decode.lextree import decode_lextree
 
     nprng = np.random.default_rng(11)
     words = ["ab", "abc", "ba", "d", "ca", "cab", "bad", "c"]
@@ -307,7 +307,7 @@ def test_incremental_emission_lexgraph_1k_words():
     """The VERDICT bar: incremental emission twins on a >= 1k-word trie,
     batched — emitted + residual bit-identical to the monolithic
     decode, bounded plane memory."""
-    from speech_recognition_tpu.decode.lextree import decode_lextree
+    from speech_recognition_jax.decode.lextree import decode_lextree
 
     nprng = np.random.default_rng(3)
     alphabet = "abcdefgh"

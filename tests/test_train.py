@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.config import DIGIT_NAMES, HMMConfig, TrainConfig
-from speech_recognition_tpu.train.em import em_fit
-from speech_recognition_tpu.train.kmeans import kmeans
-from speech_recognition_tpu.train.skmeans import calc_transition_costs, skmeans
-from speech_recognition_tpu.train.isolated import fit_hmm
+from speech_recognition_jax.config import DIGIT_NAMES, HMMConfig, TrainConfig
+from speech_recognition_jax.train.em import em_fit
+from speech_recognition_jax.train.kmeans import kmeans
+from speech_recognition_jax.train.skmeans import calc_transition_costs, skmeans
+from speech_recognition_jax.train.isolated import fit_hmm
 
 
 def test_em_recovers_mixture(rng):
@@ -100,10 +100,10 @@ def digit_setup():
     """Train 11 digit models on a small synthetic audio corpus."""
     import jax as _jax
 
-    from speech_recognition_tpu.config import FrontendConfig
-    from speech_recognition_tpu.data.synthetic import SyntheticDigits
-    from speech_recognition_tpu.models.hmm import HMMBank
-    from speech_recognition_tpu.ops.frontend import mfcc39, padded_length, max_frames
+    from speech_recognition_jax.config import FrontendConfig
+    from speech_recognition_jax.data.synthetic import SyntheticDigits
+    from speech_recognition_jax.models.hmm import HMMBank
+    from speech_recognition_jax.ops.frontend import mfcc39, padded_length, max_frames
 
     cfg = FrontendConfig()
     gen = SyntheticDigits(seed=7)
@@ -146,7 +146,7 @@ def digit_setup():
 
 
 def test_isolated_end_to_end_accuracy(digit_setup):
-    from speech_recognition_tpu.decode.isolated import classify_batch
+    from speech_recognition_jax.decode.isolated import classify_batch
 
     bank, test, test_feats, test_lens = digit_setup
     tmax = max(test_lens)
@@ -164,13 +164,13 @@ def test_isolated_end_to_end_accuracy(digit_setup):
 
 
 def test_connected_end_to_end(digit_setup):
-    from speech_recognition_tpu.data.synthetic import SyntheticDigits
-    from speech_recognition_tpu.decode.connected import (
+    from speech_recognition_jax.data.synthetic import SyntheticDigits
+    from speech_recognition_jax.decode.connected import (
         connected_graph_arrays,
         decode_connected,
     )
-    from speech_recognition_tpu.config import FrontendConfig
-    from speech_recognition_tpu.ops.frontend import mfcc39, padded_length
+    from speech_recognition_jax.config import FrontendConfig
+    from speech_recognition_jax.ops.frontend import mfcc39, padded_length
 
     bank, *_ = digit_setup
     cfg = FrontendConfig()
@@ -202,14 +202,14 @@ def test_dtw_template_classification(digit_setup):
     """Reference use_gmm=False path: skmeans templates + DTW argmin."""
     import jax.numpy as jnp
 
-    from speech_recognition_tpu.decode.dtw import (
+    from speech_recognition_jax.decode.dtw import (
         dtw_classify_batch,
         fit_template,
         stack_templates,
     )
-    from speech_recognition_tpu.data.synthetic import SyntheticDigits
-    from speech_recognition_tpu.config import FrontendConfig
-    from speech_recognition_tpu.ops.frontend import mfcc39, padded_length
+    from speech_recognition_jax.data.synthetic import SyntheticDigits
+    from speech_recognition_jax.config import FrontendConfig
+    from speech_recognition_jax.ops.frontend import mfcc39, padded_length
 
     cfg = FrontendConfig()
     gen = SyntheticDigits(seed=7)

@@ -4,14 +4,14 @@ property tests for DP kernels against the obvious O(T*S^2) oracle)."""
 import numpy as np
 import pytest
 
-from speech_recognition_tpu.models.graph import build_word_graph
-from speech_recognition_tpu.models.hmm import linear_init_cost
-from speech_recognition_tpu.ops.viterbi import (
+from speech_recognition_jax.models.graph import build_word_graph
+from speech_recognition_jax.models.hmm import linear_init_cost
+from speech_recognition_jax.ops.viterbi import (
     viterbi,
     viterbi_backtrace,
     viterbi_path_cost,
 )
-from speech_recognition_tpu.utils.numerics import POS_INF, to_cost_matrix
+from speech_recognition_jax.utils.numerics import POS_INF, to_cost_matrix
 from tests.oracles.dp_ref import decode_hmm_states_oracle, dtw_oracle
 
 
@@ -220,8 +220,8 @@ def test_optional_layer_matches_nes_oracle(rng):
 def test_transcript_graph_with_silence_decodes(rng):
     """transcript_graph with skippable silence aligns word-only audio
     (silence layers skipped) and silence-padded audio (layers used)."""
-    from speech_recognition_tpu.models.graph import transcript_graph
-    from speech_recognition_tpu.ops.viterbi_banded import (
+    from speech_recognition_jax.models.graph import transcript_graph
+    from speech_recognition_jax.ops.viterbi_banded import (
         banded_arrays,
         banded_backtrace,
         viterbi_banded,
@@ -255,7 +255,7 @@ def test_transcript_graph_with_silence_decodes(rng):
     best = int(ends[np.argmin(np.asarray(fin)[ends])])
     states, flags = banded_backtrace(bp8, eps_u, bg, jnp.int32(best),
                                      jnp.int32(T), eps_depth=g.eps_depth)
-    from speech_recognition_tpu.decode.connected import states_to_words
+    from speech_recognition_jax.decode.connected import states_to_words
 
     words = states_to_words(g, np.asarray(states), T, np.asarray(flags),
                             drop_labels={SIL})
